@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--save-dir DIR]
+
+Run from the repository root.  Phases, each printing its result:
+
+1. device: the card's name and ``nvidia-smi`` name and power limit;
+2. build: the BVH8 traversal kernel (nvcc, sm_90a) and the native BVH
+   builders, from the sources in the checkout;
+3. kernel against plain version: a 20,000-triangle soup and the v1 hall,
+   65,536 camera and random rays each (some with t_max = 0), closest hit
+   with culling on and off and any-hit; then the same comparison at the
+   shapes the 1080p frame gives the kernels (its primary rays, and its
+   point-light plus sun shadow rays);
+4. the slice: a 64x64 Cornell box, 4 frames, BVH8 kernel against brute
+   force;
+5. the main path: the v1 scene (262,144-triangle target), SAH build and
+   BVH8 collapse, then 3 frames of ``render_frame`` at 1920x1080 with 4
+   bounces, with per-frame time, rays, Mrays/s and kernel launch counts;
+   then one more frame under ``torch.profiler``: the device's busy time,
+   its idle share of the frame's wall time and the costliest kernels.
+
+Any failure raises and exits non-zero.  Without a CUDA device it exits 1
+before printing any result.  The second-to-last line is a JSON object
+describing each kernel; the last is ``{"ok": true, "device": {...}}``.
+With ``--save-dir`` the last frame is written there as a .npy image and
+the profiled frame's Chrome trace as ``frame_trace.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+KERNEL_SOURCE = "vulkanraytracing_torch/csrc/bvh8_traverse.cu"
+TPU_KERNEL = "vulkanraytracing_tpu/ops/traverse_wide8.py:278"
+BENCH_CAMERA = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0))
+# kernel against plain version: hit flags, triangle ids, back-face flags
+# and any-hit verdicts must be equal; t, u, v are expected bit-equal (both
+# round every operation: the kernel is built with -fmad=false) and held
+# to rtol 1e-6
+RTOL = 1e-6
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def camera_rays(width, height, camera_cfg, device):
+    """Jittered primary rays of a width x height image, in tile order, and
+    the valid mask of the tile padding (as the integrator makes them)."""
+    from vulkanraytracing_torch.core import rng
+    from vulkanraytracing_torch.pt.integrator import primary_rays
+    from vulkanraytracing_torch.pt.render import tile_pixel_coords
+    from vulkanraytracing_torch.scene.camera import Camera
+
+    camera = Camera(camera_cfg).to_device(device)
+    px, py, valid, _, _ = tile_pixel_coords(width, height, device=device)
+    s0, s1 = rng.pixel_seed(px, py, 0)
+    o, d = primary_rays(camera, px, py, width, height, s0, s1)
+    return o.contiguous(), d.contiguous(), valid, camera
+
+
+def random_rays(n, lo, hi, seed, device):
+    gen = np.random.default_rng(seed)
+    o = gen.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = gen.normal(0.0, 1.0, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
+
+
+def compare(table, o, d, t_min, t_max, label, culls=(True, False), any_hit=True,
+            reps=20):
+    """Kernel against plain version for closest hit (with each culling
+    setting in ``culls``) and any-hit.  Returns {"closest" (culling on) /
+    "any": (max_abs_err, kernel_ms, plain_ms)}."""
+    from vulkanraytracing_torch.ops import traverse_wide8 as tw
+
+    out = {}
+    for cull in culls:
+        k = tw.closest_cuda(table, o, d, t_min, t_max, cull)
+        p = tw.closest_plain(table, o, d, t_min, t_max, cull)
+        hit = p.is_hit
+        check(torch.equal(k.is_hit, hit), f"{label} closest cull={cull}: is_hit")
+        check(torch.equal(k.tri[hit], p.tri[hit]), f"{label} cull={cull}: tri")
+        check(torch.equal(k.backface, p.backface), f"{label} cull={cull}: backface")
+        err = 0.0
+        for name in ("t", "u", "v"):
+            a, b = getattr(k, name)[hit], getattr(p, name)[hit]
+            check(torch.allclose(a, b, rtol=RTOL, atol=0.0),
+                  f"{label} cull={cull}: {name} within rtol {RTOL}")
+            if a.numel():
+                err = max(err, float((a - b).abs().max()))
+        k_ms = cuda_ms(lambda: tw.closest_cuda(table, o, d, t_min, t_max, cull), reps)
+        p_ms = cuda_ms(lambda: tw.closest_plain(table, o, d, t_min, t_max, cull), 1)
+        print(f"  {label} closest cull={cull}: {int(hit.sum())}/{hit.numel()} hits, "
+              f"equal (max |t,u,v diff| {err:.3g}); kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.1f} ms", flush=True)
+        if cull:
+            out["closest"] = (err, k_ms, p_ms)
+    if not any_hit:
+        return out
+    k = tw.any_cuda(table, o, d, t_min, t_max)
+    p = tw.any_plain(table, o, d, t_min, t_max)
+    check(torch.equal(k, p), f"{label} any-hit verdicts")
+    k_ms = cuda_ms(lambda: tw.any_cuda(table, o, d, t_min, t_max), reps)
+    p_ms = cuda_ms(lambda: tw.any_plain(table, o, d, t_min, t_max), 1)
+    print(f"  {label} any-hit: {int(k.sum())}/{k.numel()} occluded, equal; "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
+    out["any"] = (0.0, k_ms, p_ms)
+    return out
+
+
+def main_path_rays(scene, device):
+    """The 1080p frame's primary rays (closest hit) and its bounce-0 shadow
+    rays toward a point light and the sun (any-hit), at the frame's shapes:
+    R = 2,088,960 tile-ordered rays and 2R shadow rays."""
+    from vulkanraytracing_torch.config import CameraConfig
+    from vulkanraytracing_torch.core import math3d
+    from vulkanraytracing_torch.ops import traverse_wide8 as tw
+    from vulkanraytracing_torch.ops.intersect import fetch_surface_attributes
+
+    cam_cfg = CameraConfig(**BENCH_CAMERA, aspect_ratio=1920 / 1080)
+    o, d, valid, camera = camera_rays(1920, 1080, cam_cfg, device)
+    r = o.shape[0]
+    t_min = torch.full((r,), camera.z_near, device=device)
+    t_max = torch.where(valid, camera.z_far, 0.0)
+    hit = tw.closest_cuda(tw.get_table8(scene.bvh), o, d, t_min, t_max)
+    alive = hit.is_hit
+    p = o + d * torch.where(alive, hit.t, 0.0)[:, None]
+    n = fetch_surface_attributes(scene.geometry, hit).normal
+    origin = p + n * math3d.BIAS
+    light = scene.point_lights.position[torch.arange(r, device=device) % 4, :3]
+    delta = light - origin
+    dist = math3d.length(delta)
+    sun = math3d.normalize(-scene.direct_light.direction[:3]).expand(r, 3)
+    so = torch.cat([origin, origin])
+    sd = torch.cat([math3d.normalize(delta), sun]).contiguous()
+    s_min = torch.full((2 * r,), math3d.RAY_MIN_T, device=device)
+    s_max = torch.cat([torch.where(alive, dist, 0.0),
+                       torch.where(alive, math3d.RAY_MAX_T, 0.0)])
+    return (o, d, t_min, t_max), (so, sd, s_min, s_max)
+
+
+def profile_frame(render, untraced_ms, save_dir):
+    """Run ``render()`` (one frame) under ``torch.profiler`` and print the
+    device's busy time (the union of its kernel and copy intervals), its
+    idle share of the traced frame's wall time and of ``untraced_ms`` (the
+    mean untraced frame), and the kernels that take the most device time.
+    With ``save_dir`` the Chrome trace is written there.  Only device
+    activity is traced, and a first traced frame is thrown away, so that
+    the tracer's start-up does not land in the measured frame; the tracing
+    that remains still lengthens the frame, which the two shares show."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        render()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(device) > 0, "profile: the trace holds device activity")
+    busy_us, end = 0.0, -math.inf
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        if e.time_range.end > end:
+            busy_us += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in device:
+        per_name[e.name][0] += e.time_range.elapsed_us()
+        per_name[e.name][1] += 1
+    busy_ms = busy_us / 1e3
+    print(f"[profile] traced frame {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
+          f"in {len(device)} device ops, idle share {1.0 - busy_ms / wall_ms:.4f} "
+          f"(of the untraced frames' {untraced_ms:.2f} ms: "
+          f"{1.0 - busy_ms / untraced_ms:.4f})", flush=True)
+    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile] {us / 1e3:9.3f} ms {n:5d}x  {name[:110]}", flush=True)
+    if save_dir is not None:
+        prof.export_chrome_trace(str(save_dir / "frame_trace.json"))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--save-dir", type=Path, default=None)
+    args = parser.parse_args()
+
+    # -- 1. device ------------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    # the port itself; without it (the script alone) this raises before
+    # any result is printed
+    from vulkanraytracing_torch.accel import bvh8, sah
+    from vulkanraytracing_torch.accel.lbvh import build_scene_bvh
+    from vulkanraytracing_torch.config import CameraConfig, Config, TraversalMode
+    from vulkanraytracing_torch.ops import traverse_wide8 as tw
+    from vulkanraytracing_torch.pt.render import (
+        create_render_state, render_frame, render_progressive,
+    )
+    from vulkanraytracing_torch.scene.camera import Camera
+    from vulkanraytracing_torch.scene.procedural import (
+        cornell_box_scene, sponza_like_scene, triangle_soup_scene,
+    )
+
+    device = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[1 device] {kind}; {torch.cuda.device_count()} visible; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"[1 device] nvidia-smi: {smi}", flush=True)
+
+    # -- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    tw.cuda_library()
+    sah._library()
+    bvh8._library()
+    print(f"[2 build] traversal kernel (nvcc sm_90a) and native builders: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- 3. kernel against plain version ------------------------------
+    t0 = time.perf_counter()
+    v1 = sponza_like_scene(262144, workload="v1", device=device)
+    t1 = time.perf_counter()
+    v1 = build_scene_bvh(v1, builder="sah")
+    t2 = time.perf_counter()
+    print(f"[3 kernel] v1 scene: {v1.geometry.num_triangles} triangles in "
+          f"{t1 - t0:.2f} s; SAH build + BVH8 collapse {t2 - t1:.2f} s "
+          f"({v1.bvh.nodes8.shape[0]} BVH8 nodes, worst-case stack "
+          f"{bvh8._worst_case_stack(v1.bvh.child8.cpu().numpy())} of "
+          f"{tw.STACK_DEPTH})", flush=True)
+    soup = build_scene_bvh(triangle_soup_scene(20000, seed=1, device=device))
+    n_half = 32768
+    cases = {
+        "soup20k": (soup, CameraConfig(position=(0.0, 0.0, 30.0), aspect_ratio=2.0),
+                    (-10.0, 10.0)),
+        "v1": (v1, CameraConfig(**BENCH_CAMERA, aspect_ratio=2.0),
+               ((-19.0, 0.5, -9.0), (19.0, 7.5, 9.0))),
+    }
+    for label, (scene, cam_cfg, (lo, hi)) in cases.items():
+        co, cd, _, _ = camera_rays(256, 128, cam_cfg, device)
+        ro, rd = random_rays(n_half, lo, hi, seed=5, device=device)
+        o, d = torch.cat([co, ro]), torch.cat([cd, rd])
+        t_min = torch.full((2 * n_half,), 1e-3, device=device)
+        t_max = torch.full((2 * n_half,), 1e3, device=device)
+        t_max[::251] = 0.0
+        compare(tw.get_table8(scene.bvh), o, d, t_min, t_max, label)
+
+    closest_rays, shadow_rays = main_path_rays(v1, device)
+    table = tw.get_table8(v1.bvh)
+    print("[3 kernel] at the 1080p frame's shapes:", flush=True)
+    main_closest = compare(table, *closest_rays, "frame primary", culls=(True,),
+                           any_hit=False, reps=5)["closest"]
+    main_any = compare(table, *shadow_rays, "frame shadow", culls=(), reps=5)["any"]
+
+    # -- 4. the slice against brute force -------------------------------
+    cornell = build_scene_bvh(cornell_box_scene(device=device))
+    cfg = Config(width=64, height=64, camera=CameraConfig(
+        position=(0.0, 0.0, 3.2), aspect_ratio=1.0, x_fov=float(np.radians(60))))
+    cam = Camera(cfg.camera).to_device(device)
+    images = {}
+    for mode in (TraversalMode.BVH8, TraversalMode.BRUTE_FORCE):
+        state, rays = render_progressive(cornell, cfg.replace(traversal=mode), cam, 4)
+        images[mode] = (state.accumulation, rays)
+    (a, ra), (b, rb) = images[TraversalMode.BVH8], images[TraversalMode.BRUTE_FORCE]
+    diff = float((a - b).abs().max())
+    check(diff <= 1.0 / 255.0 + 1e-6, f"Cornell BVH8 vs brute force: max diff {diff}")
+    check(ra == rb, f"Cornell ray counts {ra} vs {rb}")
+    check(bool(torch.isfinite(a).all()) and float(a.mean()) > 0.05, "Cornell image lit")
+    print(f"[4 slice] Cornell 64x64, 4 frames: BVH8 kernel vs brute force max "
+          f"diff {diff:.3g} (<= 1/255), rays {int(ra)} == {int(rb)}, "
+          f"bit-equal {bool(torch.equal(a, b))}", flush=True)
+
+    # -- 5. the main path ------------------------------------------------
+    cfg = Config(width=1920, height=1080, max_bounce_count=4, ray_chunk_size=1 << 22,
+                 traversal=TraversalMode.BVH8,
+                 camera=CameraConfig(**BENCH_CAMERA, aspect_ratio=1920 / 1080))
+    camera = Camera(cfg.camera).to_device(device)
+    state = create_render_state(cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tw.LAUNCHES.clear()
+    frame_ms = []
+    for frame in range(3):
+        before = dict(tw.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = render_frame(v1, cfg, camera, state)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        frame_ms.append(ms)
+        rays = int(stats.rays)
+        n_closest = tw.LAUNCHES["closest"] - before.get("closest", 0)
+        n_any = tw.LAUNCHES["any"] - before.get("any", 0)
+        check(n_closest >= 4 and n_any >= 4,
+              f"frame {frame}: kernel launches closest {n_closest}, any {n_any}")
+        print(f"[5 main] frame {frame}: {ms:.1f} ms, {rays} rays, "
+              f"{rays / ms / 1e3:.2f} Mrays/s; launches closest {n_closest}, "
+              f"any {n_any}", flush=True)
+    launches = dict(tw.LAUNCHES)
+    img = state.accumulation
+    check(tuple(img.shape) == (1080, 1920, 3), f"image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "image finite")
+    check(float(img.max()) > 0.0, "image not all black")
+    print(f"[5 main] image 1080x1920: mean {float(img.mean()):.4f}, max "
+          f"{float(img.max()):.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if args.save_dir is not None:
+        args.save_dir.mkdir(parents=True, exist_ok=True)
+        np.save(args.save_dir / "main_frame.npy", img[::4, ::4].cpu().numpy())
+    profile_frame(lambda: render_frame(v1, cfg, camera, state),
+                  sum(frame_ms) / len(frame_ms), args.save_dir)
+
+    kernels = [
+        {"name": "bvh8_closest", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": TPU_KERNEL, "launches": launches.get("closest", 0),
+         "max_abs_err": main_closest[0], "ms": main_closest[1],
+         "plain_ms": main_closest[2]},
+        {"name": "bvh8_any", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": TPU_KERNEL, "launches": launches.get("any", 0),
+         "max_abs_err": main_any[0], "ms": main_any[1], "plain_ms": main_any[2]},
+    ]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

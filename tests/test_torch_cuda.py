@@ -1,0 +1,77 @@
+"""The BVH8 traversal kernel on the card against its plain version, and
+the slice through the kernel against brute force.
+
+Marked ``gpu``: the CUDA kernel has no CPU mode, so these skip where no
+CUDA device is present (the CPU twin in ``test_torch_traverse.py`` covers
+the kernel's logic there).  On the card:
+
+    python -m pytest tests/test_torch_cuda.py -m gpu -q
+
+Kernel and plain version round every operation the same way (the kernel
+is built with -fmad=false), so every field must be bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vulkanraytracing_torch.accel.lbvh import build_scene_bvh
+from vulkanraytracing_torch.config import CameraConfig, Config, TraversalMode
+from vulkanraytracing_torch.ops import traverse_wide8 as tw
+from vulkanraytracing_torch.pt.render import render_progressive
+from vulkanraytracing_torch.scene.camera import Camera
+from vulkanraytracing_torch.scene.procedural import cornell_box_scene, triangle_soup_scene
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the traversal kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _case(device, n=8192):
+    scene = build_scene_bvh(triangle_soup_scene(20000, seed=1, device=device))
+    gen = np.random.default_rng(2)
+    o = gen.uniform(-10, 10, (n, 3)).astype(np.float32)
+    d = gen.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full((n,), 1e3, np.float32)
+    t_max[::7] = 0.0
+    rays = [torch.from_numpy(x).to(device) for x in (o, d, np.zeros(n, np.float32), t_max)]
+    return tw.get_table8(scene.bvh), rays
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_closest_kernel_matches_plain(cuda, cull):
+    table, rays = _case(cuda)
+    kernel = tw.closest_cuda(table, *rays, cull_backface=cull)
+    plain = tw.closest_plain(table, *rays, cull_backface=cull)
+    torch.cuda.synchronize()
+    assert plain.is_hit.sum() > 100
+    for name, a, b in zip(plain._fields, kernel, plain):
+        assert torch.equal(a, b), name
+
+
+def test_any_kernel_matches_plain_and_counts(cuda):
+    table, rays = _case(cuda)
+    before = tw.LAUNCHES["any"]
+    kernel = tw.any_cuda(table, *rays)
+    assert tw.LAUNCHES["any"] == before + 1
+    assert torch.equal(kernel, tw.any_plain(table, *rays))
+
+
+def test_cornell_through_kernel_matches_brute_force(cuda):
+    scene = build_scene_bvh(cornell_box_scene(device=cuda))
+    cfg = Config(width=32, height=32, camera=CameraConfig(
+        position=(0.0, 0.0, 3.2), aspect_ratio=1.0, x_fov=float(np.radians(60))))
+    cam = Camera(cfg.camera).to_device(cuda)
+    before = tw.LAUNCHES["closest"]
+    kernel, rays_k = render_progressive(scene, cfg, cam, 2)
+    assert tw.LAUNCHES["closest"] > before
+    brute, rays_b = render_progressive(
+        scene, cfg.replace(traversal=TraversalMode.BRUTE_FORCE), cam, 2)
+    assert rays_k == rays_b
+    assert torch.equal(kernel.accumulation, brute.accumulation)

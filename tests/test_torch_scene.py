@@ -1,0 +1,112 @@
+"""The port's procedural scenes, camera and BVH build against the JAX
+package's.
+
+Scenes are numpy assembly from the same seeded ``default_rng`` calls, and
+both packages build the BVH with the same native C++ sources and flags,
+so every array must be bit-equal (no tolerance).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vulkanraytracing_torch.accel.lbvh import build_scene_bvh as t_build
+from vulkanraytracing_torch.config import CameraConfig as TCameraConfig
+from vulkanraytracing_torch.scene import procedural as tproc
+from vulkanraytracing_torch.scene.camera import Camera as TCamera
+from vulkanraytracing_torch.scene.convert import camera_from_numpy, scene_from_numpy
+from vulkanraytracing_torch.scene.types import make_trace_geometry
+from vulkanraytracing_tpu.accel.lbvh import build_scene_bvh as j_build
+from vulkanraytracing_tpu.config import CameraConfig as JCameraConfig
+from vulkanraytracing_tpu.scene import procedural as jproc
+from vulkanraytracing_tpu.scene.camera import Camera as JCamera
+
+torch.set_num_threads(1)
+
+SCENES = {
+    "cornell": lambda mod: mod.cornell_box_scene(),
+    "soup960": lambda mod: mod.triangle_soup_scene(960),
+    "sponza40k": lambda mod: mod.sponza_like_scene(40000),
+}
+
+BVH_FIELDS = ("nodes", "child_index", "tris", "tri_flags", "tri_order",
+              "nodes8", "child8", "tri_perm8")
+
+
+def _eq(got: torch.Tensor, want, name: str):
+    want = np.asarray(want)
+    got = got.numpy()
+    assert got.shape == want.shape, name
+    np.testing.assert_array_equal(got, want.astype(got.dtype), err_msg=name)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_scene_arrays_equal(name):
+    js, ts = SCENES[name](jproc), SCENES[name](tproc)
+    for group in ("geometry", "materials", "direct_light"):
+        jg, tg = getattr(js, group), getattr(ts, group)
+        for field in tg._fields:
+            _eq(getattr(tg, field), getattr(jg, field), f"{group}.{field}")
+    assert (ts.point_lights is None) == (js.point_lights is None)
+    if ts.point_lights is not None:
+        _eq(ts.point_lights.position, js.point_lights.position, "lights.position")
+        _eq(ts.point_lights.color, js.point_lights.color, "lights.color")
+    _eq(ts.environment.panorama, js.environment.panorama, "panorama")
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_sah_bvh_bit_equal(name):
+    js = j_build(SCENES[name](jproc), builder="sah")
+    ts = t_build(SCENES[name](tproc), builder="sah")
+    assert js.bvh.nodes8 is not None
+    for field in BVH_FIELDS:
+        _eq(getattr(ts.bvh, field), getattr(js.bvh, field), field)
+    for field in ts.geometry._fields:
+        _eq(getattr(ts.geometry, field), getattr(js.geometry, field), field)
+
+
+def test_convert_carries_the_jax_scene():
+    js = j_build(jproc.cornell_box_scene(), builder="sah")
+    ts = scene_from_numpy(jax.tree.map(np.asarray, js))
+    for field in BVH_FIELDS:
+        _eq(getattr(ts.bvh, field), getattr(js.bvh, field), field)
+    _eq(ts.geometry.material_id, js.geometry.material_id, "material_id")
+    _eq(ts.materials.emission_factor, js.materials.emission_factor, "emission")
+
+
+def test_camera_matches():
+    kw = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0),
+              aspect_ratio=1920 / 1080)
+    jc = JCamera(JCameraConfig(**kw)).to_device()
+    tc = TCamera(TCameraConfig(**kw)).to_device()
+    _eq(tc.inverse_view, jc.inverse_view, "inverse_view")
+    _eq(tc.inverse_proj, jc.inverse_proj, "inverse_proj")
+    assert tc.z_near == float(jc.z_near) and tc.z_far == float(jc.z_far)
+    carried = camera_from_numpy(jax.tree.map(np.asarray, jc))
+    assert torch.equal(carried.inverse_proj, tc.inverse_proj)
+
+
+def test_unported_features_raise():
+    with pytest.raises(NotImplementedError):
+        tproc.sponza_like_scene(4000, workload="real")
+    with pytest.raises(NotImplementedError):
+        t_build(tproc.cornell_box_scene(), builder="lbvh")
+
+
+def test_textures_and_alpha_refused_where_scenes_are_made():
+    """Textures and alpha tests are refused once per scene (made, carried
+    across or given a BVH), so the frame loop needs no check."""
+    tri = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    with pytest.raises(NotImplementedError, match="alpha"):
+        make_trace_geometry(tri, [[0, 1, 2]], alpha_test=True)
+    js = jproc.cornell_box_scene()
+    alpha = js.geometry._replace(alpha_test=np.ones_like(np.asarray(js.geometry.alpha_test)))
+    with pytest.raises(NotImplementedError, match="alpha"):
+        scene_from_numpy(jax.tree.map(np.asarray, js._replace(geometry=alpha)))
+    ts = tproc.cornell_box_scene()
+    flagged = ts.geometry._replace(alpha_test=torch.ones_like(ts.geometry.alpha_test))
+    with pytest.raises(NotImplementedError, match="alpha"):
+        t_build(ts._replace(geometry=flagged))
+    with pytest.raises(NotImplementedError, match="textured"):
+        t_build(ts._replace(textures=object()))

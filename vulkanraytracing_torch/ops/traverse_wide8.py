@@ -1,0 +1,397 @@
+"""BVH8 traversal: the hand-written CUDA kernel and its plain version.
+
+Counterpart of ``vulkanraytracing_tpu/ops/traverse_wide8.py``: the same
+``Hit`` contract over the same 8-wide BVH (``accel.bvh8``), rebuilt for a
+Hopper card.  Three implementations share one table (``Table8``):
+
+- the CUDA kernel (``csrc/bvh8_traverse.cu``, one thread per ray, built
+  with nvcc for ``sm_90a`` on first use), launched for CUDA tensors;
+- the plain PyTorch version (``closest_plain`` / ``any_plain``): the same
+  per-ray algorithm in lockstep over all rays, with an (R, depth) stack
+  tensor, run for CPU tensors and held against the kernel on the card;
+- the CPU twin (``closest_twin`` / ``any_twin``): the kernel's header
+  compiled by g++, used only by the tests.
+
+All three visit nodes in the same order and round every operation the
+same way, so they agree bit for bit.  ``intersect_closest`` /
+``intersect_any`` take the plain version only for CPU tensors; for CUDA
+tensors they launch the kernel, and a failed build or launch raises.
+``LAUNCHES`` counts kernel launches per specialization.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from vulkanraytracing_torch import native
+from vulkanraytracing_torch.accel.bvh8 import _worst_case_stack
+from vulkanraytracing_torch.accel.lbvh import decode_leaf
+from vulkanraytracing_torch.ops.intersect import BIG_T, DET_EPS, Hit, moller_trumbore
+from vulkanraytracing_torch.scene.types import BVH
+
+# Per-ray stack entries; the kernel is compiled with this depth and
+# build_table8 refuses trees whose worst case needs more.
+STACK_DEPTH = 64
+TINY = 1e-30
+_INT32_MAX = 2**31 - 1
+
+# Kernel launches per specialization ("closest", "any"), counted by the
+# CUDA wrappers only.
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+class Table8(NamedTuple):
+    """The traversal table, built once per BVH (``build_table8``)."""
+
+    boxes: Tensor     # (M, 48) f32: child k's box at [6k, 6k+6): lo xyz, hi xyz
+    child: Tensor     # (M, 8) i32: node id (> 0), leaf code (< 0), 0 = empty
+    tri: Tensor       # (T8, 12) f32: v0 xyz 0, e1 xyz 0, e2 xyz 0
+    tri_meta: Tensor  # (T8, 2) i32: flags, BVH-order triangle id (-1 = padding)
+
+    def to(self, device) -> "Table8":
+        return Table8(*[t.to(device) for t in self])
+
+
+def build_table8(bvh: BVH) -> Table8:
+    """Pack the BVH8 collapse into the kernel's table.  Leaf codes address
+    the row-aligned slots of ``tri_perm8``; padding slots get flags 0, so
+    they are never candidates.  Raises when the tree's worst-case stack
+    need exceeds ``STACK_DEPTH``: the kernel has no overflow path."""
+    if bvh.nodes8 is None:
+        raise ValueError("the BVH has no 8-wide collapse (accel.bvh8.collapse_bvh8)")
+    need = _worst_case_stack(bvh.child8.cpu().numpy())
+    if need > STACK_DEPTH:
+        raise ValueError(
+            f"BVH8 needs a traversal stack of {need} > {STACK_DEPTH} entries"
+        )
+    perm = bvh.tri_perm8.long()
+    valid = perm >= 0
+    idx = perm.clamp_min(0)
+    src = bvh.tris[idx]
+    tri = torch.zeros((perm.shape[0], 12), dtype=torch.float32, device=src.device)
+    tri[:, 0:3] = src[:, 0:3]
+    tri[:, 4:7] = src[:, 3:6]
+    tri[:, 8:11] = src[:, 6:9]
+    tri[~valid] = 0.0
+    flags = torch.where(valid, bvh.tri_flags[idx], 0)
+    tid = torch.where(valid, idx, -1)
+    return Table8(
+        boxes=bvh.nodes8.float().contiguous(),
+        child=bvh.child8.to(torch.int32).contiguous(),
+        tri=tri,
+        tri_meta=torch.stack([flags, tid], dim=1).to(torch.int32).contiguous(),
+    )
+
+
+def get_table8(bvh: BVH) -> Table8:
+    """The BVH's cached table, built on first use (and again after the BVH
+    moved to another device)."""
+    if bvh.table8 is None or bvh.table8.boxes.device != bvh.nodes8.device:
+        bvh.table8 = build_table8(bvh)
+    return bvh.table8
+
+
+def _canon_rays(o, d, t_min, t_max):
+    return tuple(x.to(torch.float32).contiguous() for x in (o, d, t_min, t_max))
+
+
+# --- the plain PyTorch version -------------------------------------------
+
+
+def _safe_inv(c: Tensor) -> Tensor:
+    return 1.0 / torch.where(c.abs() < TINY, torch.where(c < 0, -TINY, TINY), c)
+
+
+def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
+                    cull_backface: bool):
+    """Lockstep traversal: every live ray makes one node or leaf visit per
+    step, exactly as one thread of the kernel does.  Returns (t, u, v,
+    tri, backface, hit) tensors over the rays."""
+    r, dev = o.shape[0], o.device
+    inv = _safe_inv(d)
+    best = torch.clamp_max(t_max, BIG_T)
+    hit = torch.zeros((r,), dtype=torch.bool, device=dev)
+    tri = torch.zeros((r,), dtype=torch.int32, device=dev)
+    u = torch.zeros((r,), dtype=torch.float32, device=dev)
+    v = torch.zeros_like(u)
+    bf = torch.zeros_like(hit)
+    cur = torch.zeros((r,), dtype=torch.int64, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    stack = torch.zeros((r, STACK_DEPTH), dtype=torch.int64, device=dev)
+    active = t_min <= t_max
+    slot = torch.arange(8, device=dev)
+
+    while True:
+        ids = torch.nonzero(active).squeeze(1)
+        if ids.numel() == 0:
+            break
+        c = cur[ids]
+        inner = c >= 0
+        pop = torch.zeros_like(inner)
+
+        ii = ids[inner]
+        if ii.numel():
+            node = c[inner]
+            box = table.boxes[node].view(-1, 8, 6)
+            oi, qi = o[ii], inv[ii]
+            ax = (box[:, :, 0] - oi[:, 0:1]) * qi[:, 0:1]
+            bx = (box[:, :, 3] - oi[:, 0:1]) * qi[:, 0:1]
+            ay = (box[:, :, 1] - oi[:, 1:2]) * qi[:, 1:2]
+            by = (box[:, :, 4] - oi[:, 1:2]) * qi[:, 1:2]
+            az = (box[:, :, 2] - oi[:, 2:3]) * qi[:, 2:3]
+            bz = (box[:, :, 5] - oi[:, 2:3]) * qi[:, 2:3]
+            tn = torch.maximum(
+                torch.maximum(torch.minimum(ax, bx), torch.minimum(ay, by)),
+                torch.maximum(torch.minimum(az, bz), t_min[ii, None]),
+            )
+            tf = torch.minimum(
+                torch.minimum(torch.maximum(ax, bx), torch.maximum(ay, by)),
+                torch.minimum(torch.maximum(az, bz), best[ii, None]),
+            )
+            dist = torch.where(tn <= tf, tn, BIG_T)
+            kids = table.child[node].long()
+            hitk = dist < BIG_T
+            n_hit = hitk.sum(1)
+            if any_hit:
+                # nearest hit child first, the others pushed in slot order
+                near = torch.argmin(dist, dim=1)
+                first = kids.gather(1, near[:, None]).squeeze(1)
+                push_list = kids
+                push = hitk & (slot[None, :] != near[:, None])
+            else:
+                # stable ascending sort; push sorted entries n-1 .. 1
+                order = torch.sort(dist, dim=1, stable=True).indices
+                sorted_kids = kids.gather(1, order)
+                first = sorted_kids[:, 0]
+                push_list = sorted_kids.flip(1)
+                rank = 7 - slot[None, :]
+                push = (rank >= 1) & (rank < n_hit[:, None])
+            pos = sp[ii, None] + torch.cumsum(push.long(), dim=1) - 1
+            rows = ii[:, None].expand(-1, 8)
+            stack[rows[push], pos[push]] = push_list[push]
+            sp[ii] += push.sum(1)
+            descend = n_hit > 0
+            cur[ii[descend]] = first[descend]
+            pop[inner] = ~descend
+
+        leaf = ~inner
+        il = ids[leaf]
+        if il.numel():
+            start, count = decode_leaf(c[leaf])
+            ol, dl, tmin_l = o[il], d[il], t_min[il]
+            best_l, hit_l = best[il], hit[il]
+            tri_l, u_l, v_l, bf_l = tri[il], u[il], v[il], bf[il]
+            for j in range(int(count.max())):
+                m = j < count
+                s = torch.where(m, start + j, 0)
+                rec, meta = table.tri[s], table.tri_meta[s]
+                flags, tid = meta[:, 0], meta[:, 1]
+                t, tu, tv, det = moller_trumbore(
+                    ol, dl, rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]
+                )
+                valid = (
+                    m & ((flags & 6) != 0) & (det.abs() > DET_EPS)
+                    & (tu >= 0.0) & (tv >= 0.0) & (tu + tv <= 1.0)
+                    & (t >= tmin_l) & (t <= best_l)
+                )
+                if cull_backface:
+                    valid &= (det > DET_EPS) | ((flags & 1) != 0)
+                if not any_hit:
+                    cur_tid = torch.where(hit_l, tri_l, _INT32_MAX)
+                    valid &= (t < best_l) | (tid < cur_tid)
+                best_l = torch.where(valid, t, best_l)
+                hit_l = hit_l | valid
+                tri_l = torch.where(valid, tid, tri_l)
+                u_l = torch.where(valid, tu, u_l)
+                v_l = torch.where(valid, tv, v_l)
+                bf_l = torch.where(valid, det < 0.0, bf_l)
+            best[il], hit[il] = best_l, hit_l
+            tri[il], u[il], v[il], bf[il] = tri_l, u_l, v_l, bf_l
+            if any_hit:
+                active[il[hit_l]] = False
+                pop[leaf] = ~hit_l
+            else:
+                pop[leaf] = True
+
+        pi = ids[pop]
+        can = sp[pi] > 0
+        pc = pi[can]
+        sp[pc] -= 1
+        cur[pc] = stack[pc, sp[pc]]
+        active[pi[~can]] = False
+
+    t = torch.where(hit, best, BIG_T)
+    return t, u, v, tri, bf & hit, hit
+
+
+def closest_plain(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
+    t, u, v, tri, bf, _ = _traverse_plain(
+        table, *_canon_rays(o, d, t_min, t_max), False, cull_backface
+    )
+    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+
+
+def any_plain(table: Table8, o, d, t_min, t_max) -> Tensor:
+    return _traverse_plain(table, *_canon_rays(o, d, t_min, t_max), True, False)[5]
+
+
+# --- the CUDA kernel -------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_TABLE_ARGS = [_P, _P, _P, _P]   # boxes, child, tri, tri_meta
+_RAY_ARGS = [_P, _P, _P, _P, _I]  # o, d, t_min, t_max, n
+
+
+def _sources() -> tuple[list, tuple]:
+    return [native.CSRC_DIR / "bvh8_traverse.cu"], (
+        native.CSRC_DIR / "bvh8_traverse.cuh",
+    )
+
+
+@functools.cache
+def cuda_library() -> ctypes.CDLL:
+    """Build (nvcc, sm_90a) and load the traversal kernel."""
+    sources, headers = _sources()
+    cmd = [native.nvcc_path(), *native.NVCC_FLAGS,
+           f"-DVRT_STACK_DEPTH={STACK_DEPTH}", f"-I{native.CSRC_DIR}"]
+    path = native.build_library("bvh8_traverse", cmd, sources, headers)
+    return native.load_library(path, {
+        "vrt_bvh8_closest": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P]),
+        "vrt_bvh8_any": (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P]),
+    })
+
+
+def _check(table: Table8, o, d, t_min, t_max, device_type: str) -> None:
+    r = o.shape[0]
+    shapes = {"o": (o, (r, 3)), "d": (d, (r, 3)), "t_min": (t_min, (r,)),
+              "t_max": (t_max, (r,))}
+    for name, (x, shape) in shapes.items():
+        if x.device.type != device_type or x.dtype != torch.float32:
+            raise ValueError(f"{name}: need float32 on {device_type}, got "
+                             f"{x.dtype} on {x.device}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name}: need contiguous {shape}, got {tuple(x.shape)}")
+    for x in table:
+        if x.device != o.device or not x.is_contiguous():
+            raise ValueError("the table must be contiguous on the rays' device")
+
+
+def _ptrs(*tensors) -> list[int]:
+    return [t.data_ptr() for t in tensors]
+
+
+def closest_cuda(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
+    """Launch the closest-hit kernel on the current stream."""
+    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
+    _check(table, o, d, t_min, t_max, "cuda")
+    lib = cuda_library()
+    r = o.shape[0]
+    t = torch.empty((r,), dtype=torch.float32, device=o.device)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    tri = torch.empty((r,), dtype=torch.int32, device=o.device)
+    bf = torch.empty((r,), dtype=torch.bool, device=o.device)
+    if r:
+        with torch.cuda.device(o.device):
+            err = lib.vrt_bvh8_closest(
+                *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+                *_ptrs(t, u, v, tri, bf),
+                torch.cuda.current_stream(o.device).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"bvh8 closest-hit launch failed: cudaError {err}")
+        LAUNCHES["closest"] += 1
+    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+
+
+def any_cuda(table: Table8, o, d, t_min, t_max) -> Tensor:
+    """Launch the any-hit kernel on the current stream."""
+    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
+    _check(table, o, d, t_min, t_max, "cuda")
+    lib = cuda_library()
+    r = o.shape[0]
+    out = torch.empty((r,), dtype=torch.bool, device=o.device)
+    if r:
+        with torch.cuda.device(o.device):
+            err = lib.vrt_bvh8_any(
+                *_ptrs(*table, o, d, t_min, t_max), r, out.data_ptr(),
+                torch.cuda.current_stream(o.device).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"bvh8 any-hit launch failed: cudaError {err}")
+        LAUNCHES["any"] += 1
+    return out
+
+
+# --- the CPU twin (tests only) --------------------------------------------
+
+
+@functools.cache
+def twin_library() -> ctypes.CDLL:
+    """The kernel's header compiled by g++ for the host."""
+    _, headers = _sources()
+    cmd = [*native.GXX, "-ffp-contract=off", f"-DVRT_STACK_DEPTH={STACK_DEPTH}",
+           f"-I{native.CSRC_DIR}"]
+    path = native.build_library(
+        "bvh8_twin", cmd, [native.CSRC_DIR / "bvh8_twin.cpp"], headers
+    )
+    return native.load_library(path, {
+        "vrt_bvh8_closest_cpu": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P]),
+        "vrt_bvh8_any_cpu": (_I, _TABLE_ARGS + _RAY_ARGS + [_P]),
+    })
+
+
+def closest_twin(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
+    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
+    _check(table, o, d, t_min, t_max, "cpu")
+    r = o.shape[0]
+    t = torch.empty((r,), dtype=torch.float32)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    tri = torch.empty((r,), dtype=torch.int32)
+    bf = torch.empty((r,), dtype=torch.bool)
+    twin_library().vrt_bvh8_closest_cpu(
+        *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+        *_ptrs(t, u, v, tri, bf),
+    )
+    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+
+
+def any_twin(table: Table8, o, d, t_min, t_max) -> Tensor:
+    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
+    _check(table, o, d, t_min, t_max, "cpu")
+    out = torch.empty((o.shape[0],), dtype=torch.bool)
+    twin_library().vrt_bvh8_any_cpu(
+        *_ptrs(*table, o, d, t_min, t_max), o.shape[0], out.data_ptr()
+    )
+    return out
+
+
+# --- public entries --------------------------------------------------------
+
+
+def intersect_closest(bvh: BVH, o, d, t_min, t_max, cull_backface=True) -> Hit:
+    """Closest hit over the BVH: the kernel for CUDA rays, the plain
+    version for CPU rays."""
+    table = get_table8(bvh)
+    if o.device.type == "cuda":
+        return closest_cuda(table, o, d, t_min, t_max, cull_backface)
+    if o.device.type == "cpu":
+        return closest_plain(table, o, d, t_min, t_max, cull_backface)
+    raise ValueError(f"no BVH8 traversal for rays on {o.device}")
+
+
+def intersect_any(bvh: BVH, o, d, t_min, t_max) -> Tensor:
+    """Occlusion of [t_min, t_max] (no culling): the kernel for CUDA rays,
+    the plain version for CPU rays."""
+    table = get_table8(bvh)
+    if o.device.type == "cuda":
+        return any_cuda(table, o, d, t_min, t_max)
+    if o.device.type == "cpu":
+        return any_plain(table, o, d, t_min, t_max)
+    raise ValueError(f"no BVH8 traversal for rays on {o.device}")
