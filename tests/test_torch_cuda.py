@@ -1,9 +1,9 @@
-"""The BVH8 traversal kernel on the card against its plain version, and
-the slice through the kernel against brute force.
+"""The BVH8 and BVH2 traversal kernels on the card against their plain
+versions, and the slice through the BVH8 kernel against brute force.
 
 Marked ``gpu``: the CUDA kernel has no CPU mode, so these skip where no
 CUDA device is present (the CPU twin in ``test_torch_traverse.py`` covers
-the kernel's logic there).  On the card:
+the kernels' logic there).  On the card:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
 
@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from vulkanraytracing_torch.accel.lbvh import build_scene_bvh
+from vulkanraytracing_torch.accel.lbvh import build_bvh, build_scene_bvh
 from vulkanraytracing_torch.config import CameraConfig, Config, TraversalMode
+from vulkanraytracing_torch.ops import traverse_wide as tw2
 from vulkanraytracing_torch.ops import traverse_wide8 as tw
 from vulkanraytracing_torch.pt.render import render_progressive
 from vulkanraytracing_torch.scene.camera import Camera
@@ -32,16 +33,19 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _case(device, n=8192):
-    scene = build_scene_bvh(triangle_soup_scene(20000, seed=1, device=device))
+def _rays(device, n=8192):
     gen = np.random.default_rng(2)
     o = gen.uniform(-10, 10, (n, 3)).astype(np.float32)
     d = gen.normal(0, 1, (n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     t_max = np.full((n,), 1e3, np.float32)
     t_max[::7] = 0.0
-    rays = [torch.from_numpy(x).to(device) for x in (o, d, np.zeros(n, np.float32), t_max)]
-    return tw.get_table8(scene.bvh), rays
+    return [torch.from_numpy(x).to(device) for x in (o, d, np.zeros(n, np.float32), t_max)]
+
+
+def _case(device):
+    scene = build_scene_bvh(triangle_soup_scene(20000, seed=1, device=device))
+    return tw.get_table8(scene.bvh), _rays(device)
 
 
 @pytest.mark.parametrize("cull", [True, False])
@@ -61,6 +65,33 @@ def test_any_kernel_matches_plain_and_counts(cuda):
     kernel = tw.any_cuda(table, *rays)
     assert tw.LAUNCHES["any"] == before + 1
     assert torch.equal(kernel, tw.any_plain(table, *rays))
+
+
+def _case2(device):
+    """The same soup as an LBVH with no collapse: the BVH2 kernel's tree."""
+    _, bvh = build_bvh(triangle_soup_scene(20000, seed=1, device=device).geometry)
+    return tw2.get_table2(bvh), _rays(device)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_bvh2_closest_kernel_matches_plain(cuda, cull):
+    table, rays = _case2(cuda)
+    before = tw2.LAUNCHES["closest2"]
+    kernel = tw2.closest_cuda(table, *rays, cull_backface=cull)
+    assert tw2.LAUNCHES["closest2"] == before + 1
+    plain = tw2.closest_plain(table, *rays, cull_backface=cull)
+    torch.cuda.synchronize()
+    assert plain.is_hit.sum() > 100
+    for name, a, b in zip(plain._fields, kernel, plain):
+        assert torch.equal(a, b), name
+
+
+def test_bvh2_any_kernel_matches_plain_and_counts(cuda):
+    table, rays = _case2(cuda)
+    before = tw2.LAUNCHES["any2"]
+    kernel = tw2.any_cuda(table, *rays)
+    assert tw2.LAUNCHES["any2"] == before + 1
+    assert torch.equal(kernel, tw2.any_plain(table, *rays))
 
 
 def test_cornell_through_kernel_matches_brute_force(cuda):

@@ -1,8 +1,8 @@
 """The port's whole slice against the JAX package: a 32x32 Cornell box,
 2 progressive frames, on the same SAH-permuted scene (the JAX build,
-carried across).  The port runs on the CPU with its default BVH8
-traversal (the plain version); the JAX package runs brute force, its
-parity oracle.
+carried across).  The port runs on the CPU with its default BVH kernel
+traversal (the BVH8 plain version, the SAH build carries its collapse);
+the JAX package runs brute force, its parity oracle.
 
 Gate: at least 99% of pixel channels within 1/255 and ray counts within
 0.5%.  Bit equality is the target, but not the gate: XLA:CPU fuses
@@ -65,7 +65,7 @@ def test_cornell_matches_jax_brute_force():
         want_rays += float(stats.rays)
     want = np.asarray(state.accumulation)
 
-    got, rays = _render_port(ts, TMode.BVH8, frames=2)
+    got, rays = _render_port(ts, TMode.BVH_KERNEL, frames=2)
     assert got.shape == want.shape and not np.isnan(got).any()
     close = np.abs(got - want) <= 1.0 / 255.0 + 1e-6
     assert close.mean() >= 0.99, f"{close.mean():.4f} of channels within 1/255"

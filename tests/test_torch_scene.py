@@ -88,10 +88,12 @@ def test_camera_matches():
 
 
 def test_unported_features_raise():
+    """The real workload is not ported; an unknown builder is refused
+    (``builder="lbvh"``, the default, is ported)."""
     with pytest.raises(NotImplementedError):
         tproc.sponza_like_scene(4000, workload="real")
-    with pytest.raises(NotImplementedError):
-        t_build(tproc.cornell_box_scene(), builder="lbvh")
+    with pytest.raises(ValueError, match="builder"):
+        t_build(tproc.cornell_box_scene(), builder="median")
 
 
 def test_textures_and_alpha_refused_where_scenes_are_made():

@@ -1,8 +1,8 @@
-"""Typed runtime configuration — the fields the path-tracing slice reads.
+"""Typed runtime configuration — the fields the ported slices read.
 
-Counterpart of ``vulkanraytracing_tpu/config.py``.  Only path-tracing mode
-exists here; hybrid mode, IBL sizes and anisotropic taps come with later
-slices.
+Counterpart of ``vulkanraytracing_tpu/config.py``.  Both render modes
+exist and the Engine toggles between them, but only path tracing draws:
+hybrid drawing, IBL sizes and anisotropic taps come with a later slice.
 """
 
 from __future__ import annotations
@@ -12,13 +12,23 @@ import enum
 import math
 
 
+class RenderMode(enum.Enum):
+    """The reference's RenderMode::{eHybrid, ePathTracing}."""
+
+    PATH_TRACING = "path_tracing"
+    HYBRID = "hybrid"
+
+
 class TraversalMode(enum.Enum):
     """Which trace backend to use.  Both implement the same ``Hit``
     contract (``ops.intersect.Hit``)."""
 
     BRUTE_FORCE = "brute_force"  # O(R*T) Moller-Trumbore oracle, plain torch
-    BVH8 = "bvh8"                # BVH8 traversal: CUDA kernel on the card,
-    #                              its plain torch version for CPU tensors
+    BVH_KERNEL = "bvh_kernel"    # the JAX package's BVH_PALLAS: the BVH8
+    #                              kernel when the BVH has its 8-wide
+    #                              collapse, the BVH2 kernel otherwise (CUDA
+    #                              on the card, their plain torch versions
+    #                              for CPU tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +50,10 @@ class CameraConfig:
 class Config:
     width: int = 1280
     height: int = 720
-    traversal: TraversalMode = TraversalMode.BVH8
+
+    # toggled by the Engine's T key
+    render_mode: RenderMode = RenderMode.PATH_TRACING
+    traversal: TraversalMode = TraversalMode.BVH_KERNEL
 
     # Russian roulette starts after min_bounce_count bounces
     min_bounce_count: int = 2
@@ -56,7 +69,9 @@ class Config:
 
     point_light_radius: float = 0.05
 
-    camera:CameraConfig = dataclasses.field(default_factory=CameraConfig)
+    # the Engine's camera projection swaps z_near and z_far
+    reverse_depth: bool = True
+    camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
 
     # Rays per integrator call; a 1080p frame is one chunk at the default.
     ray_chunk_size: int = 1 << 22

@@ -2,9 +2,9 @@
 
 Every native piece of the port is a shared library with a plain C
 interface: the SAH builder and the BVH8 collapse (the JAX package's C++
-sources, reused by path and built with g++), the BVH8 traversal kernel
-(``csrc/``, built with nvcc for ``sm_90a``) and its CPU twin (the same
-header built with g++, used by the tests).
+sources, reused by path and built with g++), the BVH8 and BVH2 traversal
+kernels (``csrc/``, built with nvcc for ``sm_90a``) and their CPU twins
+(the same headers built with g++, used by the tests).
 
 A library is written to ``vulkanraytracing_torch/build/`` under a name
 keyed by a hash of its sources and its command line, so a changed source

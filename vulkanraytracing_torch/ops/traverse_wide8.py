@@ -108,11 +108,38 @@ def _safe_inv(c: Tensor) -> Tensor:
     return 1.0 / torch.where(c.abs() < TINY, torch.where(c < 0, -TINY, TINY), c)
 
 
-def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
-                    cull_backface: bool):
+def child_distances(box: Tensor, o: Tensor, inv: Tensor, t_min: Tensor,
+                    best: Tensor) -> Tensor:
+    """Slab test of (R, W, 6) child boxes (lo xyz, hi xyz): entry
+    distances (R, W), BIG_T where missed."""
+    ax = (box[:, :, 0] - o[:, 0:1]) * inv[:, 0:1]
+    bx = (box[:, :, 3] - o[:, 0:1]) * inv[:, 0:1]
+    ay = (box[:, :, 1] - o[:, 1:2]) * inv[:, 1:2]
+    by = (box[:, :, 4] - o[:, 1:2]) * inv[:, 1:2]
+    az = (box[:, :, 2] - o[:, 2:3]) * inv[:, 2:3]
+    bz = (box[:, :, 5] - o[:, 2:3]) * inv[:, 2:3]
+    tn = torch.maximum(
+        torch.maximum(torch.minimum(ax, bx), torch.minimum(ay, by)),
+        torch.maximum(torch.minimum(az, bz), t_min[:, None]),
+    )
+    tf = torch.minimum(
+        torch.minimum(torch.maximum(ax, bx), torch.maximum(ay, by)),
+        torch.minimum(torch.maximum(az, bz), best[:, None]),
+    )
+    return torch.where(tn <= tf, tn, BIG_T)
+
+
+def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
+             cull_backface: bool):
     """Lockstep traversal: every live ray makes one node or leaf visit per
-    step, exactly as one thread of the kernel does.  Returns (t, u, v,
-    tri, backface, hit) tensors over the rays."""
+    step, exactly as one thread of a traversal kernel does.
+
+    ``node_step(node, o, inv, t_min, best)`` returns (first, push_list,
+    push, descend) for a batch of node visits: the child to descend into,
+    (R, W) entries pushed in column order where ``push`` is set, and
+    whether any child was hit.  ``leaf_fetch(slot)`` returns (v0, e1, e2,
+    flags, tid) of triangle records.  Returns (t, u, v, tri, backface,
+    hit) tensors over the rays."""
     r, dev = o.shape[0], o.device
     inv = _safe_inv(d)
     best = torch.clamp_max(t_max, BIG_T)
@@ -125,7 +152,6 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
     stack = torch.zeros((r, STACK_DEPTH), dtype=torch.int64, device=dev)
     active = t_min <= t_max
-    slot = torch.arange(8, device=dev)
 
     while True:
         ids = torch.nonzero(active).squeeze(1)
@@ -137,46 +163,12 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
 
         ii = ids[inner]
         if ii.numel():
-            node = c[inner]
-            box = table.boxes[node].view(-1, 8, 6)
-            oi, qi = o[ii], inv[ii]
-            ax = (box[:, :, 0] - oi[:, 0:1]) * qi[:, 0:1]
-            bx = (box[:, :, 3] - oi[:, 0:1]) * qi[:, 0:1]
-            ay = (box[:, :, 1] - oi[:, 1:2]) * qi[:, 1:2]
-            by = (box[:, :, 4] - oi[:, 1:2]) * qi[:, 1:2]
-            az = (box[:, :, 2] - oi[:, 2:3]) * qi[:, 2:3]
-            bz = (box[:, :, 5] - oi[:, 2:3]) * qi[:, 2:3]
-            tn = torch.maximum(
-                torch.maximum(torch.minimum(ax, bx), torch.minimum(ay, by)),
-                torch.maximum(torch.minimum(az, bz), t_min[ii, None]),
-            )
-            tf = torch.minimum(
-                torch.minimum(torch.maximum(ax, bx), torch.maximum(ay, by)),
-                torch.minimum(torch.maximum(az, bz), best[ii, None]),
-            )
-            dist = torch.where(tn <= tf, tn, BIG_T)
-            kids = table.child[node].long()
-            hitk = dist < BIG_T
-            n_hit = hitk.sum(1)
-            if any_hit:
-                # nearest hit child first, the others pushed in slot order
-                near = torch.argmin(dist, dim=1)
-                first = kids.gather(1, near[:, None]).squeeze(1)
-                push_list = kids
-                push = hitk & (slot[None, :] != near[:, None])
-            else:
-                # stable ascending sort; push sorted entries n-1 .. 1
-                order = torch.sort(dist, dim=1, stable=True).indices
-                sorted_kids = kids.gather(1, order)
-                first = sorted_kids[:, 0]
-                push_list = sorted_kids.flip(1)
-                rank = 7 - slot[None, :]
-                push = (rank >= 1) & (rank < n_hit[:, None])
+            first, push_list, push, descend = node_step(
+                c[inner], o[ii], inv[ii], t_min[ii], best[ii])
             pos = sp[ii, None] + torch.cumsum(push.long(), dim=1) - 1
-            rows = ii[:, None].expand(-1, 8)
+            rows = ii[:, None].expand_as(push)
             stack[rows[push], pos[push]] = push_list[push]
             sp[ii] += push.sum(1)
-            descend = n_hit > 0
             cur[ii[descend]] = first[descend]
             pop[inner] = ~descend
 
@@ -190,11 +182,8 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
             for j in range(int(count.max())):
                 m = j < count
                 s = torch.where(m, start + j, 0)
-                rec, meta = table.tri[s], table.tri_meta[s]
-                flags, tid = meta[:, 0], meta[:, 1]
-                t, tu, tv, det = moller_trumbore(
-                    ol, dl, rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]
-                )
+                v0, e1, e2, flags, tid = leaf_fetch(s)
+                t, tu, tv, det = moller_trumbore(ol, dl, v0, e1, e2)
                 valid = (
                     m & ((flags & 6) != 0) & (det.abs() > DET_EPS)
                     & (tu >= 0.0) & (tv >= 0.0) & (tu + tv <= 1.0)
@@ -230,6 +219,34 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
     return t, u, v, tri, bf & hit, hit
 
 
+def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
+                    cull_backface: bool):
+    slot = torch.arange(8, device=o.device)
+
+    def node_step(node, oi, qi, tmin_i, best_i):
+        dist = child_distances(table.boxes[node].view(-1, 8, 6), oi, qi, tmin_i, best_i)
+        kids = table.child[node].long()
+        hitk = dist < BIG_T
+        n_hit = hitk.sum(1)
+        if any_hit:
+            # nearest hit child first, the others pushed in slot order
+            near = torch.argmin(dist, dim=1)
+            first = kids.gather(1, near[:, None]).squeeze(1)
+            return first, kids, hitk & (slot[None, :] != near[:, None]), n_hit > 0
+        # stable ascending sort; push sorted entries n-1 .. 1
+        order = torch.sort(dist, dim=1, stable=True).indices
+        sorted_kids = kids.gather(1, order)
+        rank = 7 - slot[None, :]
+        push = (rank >= 1) & (rank < n_hit[:, None])
+        return sorted_kids[:, 0], sorted_kids.flip(1), push, n_hit > 0
+
+    def leaf_fetch(s):
+        rec, meta = table.tri[s], table.tri_meta[s]
+        return rec[:, 0:3], rec[:, 4:7], rec[:, 8:11], meta[:, 0], meta[:, 1]
+
+    return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface)
+
+
 def closest_plain(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
     t, u, v, tri, bf, _ = _traverse_plain(
         table, *_canon_rays(o, d, t_min, t_max), False, cull_backface
@@ -252,6 +269,7 @@ _RAY_ARGS = [_P, _P, _P, _P, _I]  # o, d, t_min, t_max, n
 def _sources() -> tuple[list, tuple]:
     return [native.CSRC_DIR / "bvh8_traverse.cu"], (
         native.CSRC_DIR / "bvh8_traverse.cuh",
+        native.CSRC_DIR / "traverse_common.cuh",
     )
 
 

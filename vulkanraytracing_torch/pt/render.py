@@ -63,6 +63,13 @@ def create_render_state(cfg: Config, device="cpu") -> RenderState:
     )
 
 
+def reset_accumulation(state: RenderState) -> RenderState:
+    """Start accumulating anew (camera move, resize, reload, moved
+    instances)."""
+    return RenderState(accumulation=torch.zeros_like(state.accumulation),
+                       accum_index=0)
+
+
 def _quantize_rgb8(x: Tensor) -> Tensor:
     """RGBA8 storage round trip (UNORM: round(clamp(x) * 255) / 255)."""
     return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0) / 255.0

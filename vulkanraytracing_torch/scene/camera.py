@@ -95,3 +95,17 @@ class Camera:
             z_near=float(np.float32(d.z_near)),
             z_far=float(np.float32(d.z_far)),
         )
+
+    # --- mutators (the Engine's camera system moves the camera) ---
+
+    def set_position(self, position) -> None:
+        self.description = dataclasses.replace(self.description, position=tuple(position))
+
+    def set_direction(self, direction) -> None:
+        p = np.asarray(self.description.position)
+        self.description = dataclasses.replace(
+            self.description, target=tuple(p + np.asarray(direction))
+        )
+
+    def set_target(self, target) -> None:
+        self.description = dataclasses.replace(self.description, target=tuple(target))

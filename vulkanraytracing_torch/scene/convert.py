@@ -1,6 +1,8 @@
-"""Carry a scene or camera from the JAX package across, by field name.
+"""Carry a scene, instance soup or camera from the JAX package across, by
+field name.
 
-``scene_from_numpy`` and ``camera_from_numpy`` read objects whose leaves
+``scene_from_numpy``, ``soup_from_numpy`` and ``camera_from_numpy`` read
+objects whose leaves
 are numpy arrays (for example the JAX package's ``Scene`` after
 ``jax.tree.map(np.asarray, scene)``) and return the port's objects on
 ``device``.  Nothing here imports JAX: any object with the same field
@@ -57,6 +59,17 @@ def scene_from_numpy(obj, device="cpu") -> Scene:
         direct_light=_fields(DirectLight, obj.direct_light, device),
         point_lights=point_lights,
         bvh=bvh,
+    )
+
+
+def soup_from_numpy(obj, device="cpu"):
+    """Port ``accel.tlas.InstanceSoup`` from a numpy-leaved soup with the
+    JAX field names."""
+    from vulkanraytracing_torch.accel.tlas import InstanceSoup
+
+    return InstanceSoup(
+        object_geometry=_fields(TraceGeometry, obj.object_geometry, device),
+        instance_id=_tensor(obj.instance_id, device),
     )
 
 

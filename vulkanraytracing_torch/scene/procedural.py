@@ -3,7 +3,8 @@
 Counterpart of ``vulkanraytracing_tpu/scene/procedural.py``.  Every scene
 is assembled on the host with numpy's ``default_rng(seed)`` in the same
 call order as the JAX package, so the arrays match it bit for bit, and is
-then moved to ``device`` once.  Only the factor-only workloads are ported:
+then moved to ``device`` once (``animated_instances_demo`` also returns
+an instance soup and its animation).  Only the factor-only workloads are ported:
 ``sponza_like_scene(workload="real")`` needs textures and alpha-tested
 foliage, which the port does not have yet.
 """
@@ -235,3 +236,58 @@ def sponza_like_scene(target_triangles: int = 262144, seed: int = 7,
         ),
         bvh=None,
     )
+
+
+def animated_instances_demo(orbiters: int = 4, device="cpu"):
+    """Two-level animated scene: a static ground quad BLAS and one sphere
+    BLAS instanced ``orbiters`` times, which the animation callback orbits
+    around the y axis.  Returns (scene_template, soup, animation) for
+    ``app.engine.Engine``; ``animation(frame)`` is an (I, 4, 4) float32
+    numpy array of world transforms, instance 0 the ground."""
+    import math
+
+    from vulkanraytracing_torch.accel.tlas import make_instances
+
+    gv, gi = _quad([-6, 0, -6], [-6, 0, 6], [6, 0, 6], [6, 0, -6])
+    ground = make_trace_geometry(gv, gi, material_id=0, device=device)
+    sv, si = generate_sphere(radius=0.6)
+    sphere = make_trace_geometry(sv, si, material_id=1, device=device)
+
+    soup = make_instances(
+        blases=[ground, sphere],
+        blas_ids=[0] + [1] * orbiters,
+        material_offsets=[0] + [i % 2 for i in range(orbiters)],
+    )
+
+    materials = make_materials(
+        base_color_factors=[
+            (0.7, 0.7, 0.7, 1.0),   # ground
+            (0.8, 0.3, 0.2, 1.0),   # orbiter A
+            (0.2, 0.4, 0.8, 1.0),   # orbiter B
+        ],
+        roughness_factors=[0.9, 0.4, 0.2],
+        metallic_factors=[0.0, 0.1, 0.8],
+        device=device,
+    )
+
+    def animation(frame_index: int) -> np.ndarray:
+        t = frame_index * (2.0 * math.pi / 96.0)
+        mats = [np.eye(4, dtype=np.float32)]  # ground static
+        for i in range(orbiters):
+            phase = t + i * (2.0 * math.pi / orbiters)
+            m = np.eye(4, dtype=np.float32)
+            m[0, 3] = 3.0 * math.cos(phase)
+            m[1, 3] = 1.2 + 0.4 * math.sin(2.0 * phase)
+            m[2, 3] = 3.0 * math.sin(phase)
+            mats.append(m)
+        return np.stack(mats, axis=0)
+
+    scene = Scene(
+        geometry=ground,  # placeholder; the Engine replaces it via build_tlas
+        materials=materials,
+        environment=constant_environment((0.6, 0.7, 0.9), device=device),
+        direct_light=no_direct_light(device),
+        point_lights=None,
+        bvh=None,
+    )
+    return scene, soup, animation

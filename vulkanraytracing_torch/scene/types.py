@@ -100,17 +100,34 @@ class Environment(NamedTuple):
         return _to(self, device)
 
 
+class Topology(NamedTuple):
+    """What a refit needs of a tree's fixed topology, found once when the
+    tree is built (``accel.lbvh.build_bvh``) and kept by every refit."""
+
+    levels: tuple[Tensor, ...]  # node rows per refit pass, children's first
+    slot_left: Tensor           # (k,) i64 box-table row of each node's children:
+    slot_right: Tensor          # Karras nodes, then one row per triangle
+    stack_need: int             # worst-case BVH2 traversal stack entries
+
+    def to(self, device) -> "Topology":
+        return self._replace(levels=tuple(x.to(device) for x in self.levels),
+                             slot_left=self.slot_left.to(device),
+                             slot_right=self.slot_right.to(device))
+
+
 @dataclasses.dataclass
 class BVH:
-    """Flattened 2-wide BVH with multi-triangle leaves plus its 8-wide
-    collapse (see ``accel``).
+    """Flattened 2-wide BVH with multi-triangle leaves, optionally with its
+    8-wide collapse (see ``accel``).
 
     Child encoding: id >= 0 is a node; id < 0 is a leaf ``~((start << 4) |
     count)``.  ``nodes8``/``child8`` are the BVH8 collapse (empty slots:
     child 0 and a far box lo = hi = +3e38); ``tri_perm8[i]`` is the
     BVH-order triangle stored in aligned slot ``i`` (-1 = padding).
-    ``table8`` caches the traversal kernel's table
-    (``ops.traverse_wide8.Table8``), built on first use."""
+    ``table8`` and ``table2`` cache the traversal kernels' tables
+    (``ops.traverse_wide8.Table8``, ``ops.traverse_wide.Table2``), built
+    on first use; a refit returns a new BVH with both empty, so a kernel
+    never traces a stale table."""
 
     nodes: Tensor        # (N, 12) f32: c0.lo c0.hi c1.lo c1.hi
     child_index: Tensor  # (N, 2) i32
@@ -121,6 +138,8 @@ class BVH:
     child8: Optional[Tensor] = None     # (M, 8) i32
     tri_perm8: Optional[Tensor] = None  # (T8,) i32
     table8: Optional[Any] = None
+    table2: Optional[Any] = None
+    topology: Optional[Topology] = None  # LBVH builds only
 
     def to(self, device) -> "BVH":
         fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
