@@ -6,8 +6,10 @@
 Run from the repository root.  Phases, each printing its result:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: the BVH8 and BVH2 traversal kernels (nvcc, sm_90a) and the
-   native BVH builders, from the sources in the checkout, all at once;
+2. build: the four traversal kernels (BVH8, BVH2, subpacket and shared
+   cursor; nvcc, sm_90a) and the native BVH builders, from the sources in
+   the checkout, all at once; ptxas's registers, stack and spills of each
+   kernel specialization;
 3. kernel against plain version: a 20,000-triangle soup and the v1 hall,
    65,536 camera and random rays each (some with t_max = 0), closest hit
    with culling on and off and any-hit; then the same comparison at the
@@ -32,15 +34,39 @@ Run from the repository root.  Phases, each printing its result:
    inside the frame), frame ms, rays, Mrays/s and the launches of all
    four kernel specializations, one static frame that accumulates, the
    refitted image against a frame over a from-scratch LBVH build
-   (bit-equal), the peak device memory and one profiled moving frame.
+   (bit-equal), the peak device memory and one profiled moving frame;
+8. the packet kernels (subpacket, shared cursor) on the 2-wide arrays of
+   the trees: against their plain versions on the 20,000-triangle soup as
+   an LBVH and as an SAH tree (camera and random rays as in phase 3), then
+   at the 1080p v1 frame's shapes, every field bit for bit, each kernel run
+   twice; then 2 frames of ``render_frame`` at 1920x1080 with 4 bounces
+   under each of ``TraversalMode.BVH_SUBPACKET`` and ``BVH_SHARED`` with
+   per-frame time, rays, Mrays/s and the launches of every kernel, each
+   mode's first frame against phase 5's first ``BVH_KERNEL`` frame (ray
+   counts within 0.1%, at most 0.1% of pixels more than 1/255 apart: the
+   packet kernels let the first triangle tested win an exact tie and do not
+   commit a hit exactly at t_max); then one frame under ``TraversalMode.BVH``
+   (the plain packet backend, which launches no kernel) with the depth cut
+   to 1 bounce, held to the same gate against a ``BVH_KERNEL`` frame of
+   that depth.
+
+Each kernel's ``bound_ms`` is the larger of two times at the frame's
+shapes: its bytes (each ray's 32 input bytes once, the table once, the
+results once: 17 bytes a ray for closest hit, 1 for any-hit) over 3.35
+TB/s, and its operations over 67 TFLOP/s (fp32 off the tensor cores).  The
+operations are the slab and triangle tests that the per-ray plain version
+of the same tree makes for the same rays (its ``counts``; the three 2-wide
+kernels are held to the BVH2 one's), times the operations of one test
+counted from the code (``BOX_OPS``, ``TRI_OPS``).  No single PyTorch call
+traverses a BVH, so ``library_ms`` is null.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
 describing each kernel; the last is ``{"ok": true, "device": {...}}``.
 With ``--save-dir`` the last frame of each path is written there as a
-.npy image (``main_frame.npy``, ``dynamic_frame.npy``) and the profiled
-frames' Chrome traces as ``frame_trace.json`` and
-``dynamic_frame_trace.json``.
+.npy image (``main_frame.npy``, ``dynamic_frame.npy``,
+``subpacket_frame.npy``, ``shared_frame.npy``) and the profiled frames'
+Chrome traces as ``frame_trace.json`` and ``dynamic_frame_trace.json``.
 """
 
 from __future__ import annotations
@@ -49,6 +75,7 @@ import argparse
 import collections
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -58,10 +85,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-KERNEL_SOURCE = "vulkanraytracing_torch/csrc/bvh8_traverse.cu"
-TPU_KERNEL = "vulkanraytracing_tpu/ops/traverse_wide8.py:278"
-KERNEL2_SOURCE = "vulkanraytracing_torch/csrc/bvh2_traverse.cu"
-TPU_KERNEL2 = "vulkanraytracing_tpu/ops/traverse_wide.py:136"
+# each kernel's source; the TPU kernel it replaces is named on the
+# source's own "// Replaces: file:line" line
+SOURCES = {
+    "bvh8": "vulkanraytracing_torch/csrc/bvh8_traverse.cu",
+    "bvh2": "vulkanraytracing_torch/csrc/bvh2_traverse.cu",
+    "subpacket": "vulkanraytracing_torch/csrc/subpacket_traverse.cu",
+    "shared": "vulkanraytracing_torch/csrc/shared_traverse.cu",
+}
 ORBITERS = 64
 BENCH_CAMERA = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0))
 # kernel against plain version: hit flags, triangle ids, back-face flags
@@ -69,6 +100,26 @@ BENCH_CAMERA = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0))
 # round every operation: the kernel is built with -fmad=false) and held
 # to rtol 1e-6
 RTOL = 1e-6
+# the bound: H100 SXM peaks (NVIDIA's data sheet, at 700 W), and the
+# operations of one slab test and one triangle test, counted from the code
+# (csrc/traverse_common.cuh and csrc/packet_common.cuh, the same
+# arithmetic).  A slab test: 6 differences, 6 products, 6 min/max per axis,
+# 3 max for the entry, 3 min for the exit, 1 compare.  A triangle test: 27
+# products (the two cross products, three dot products, three scalings by
+# 1/det), 17 sums and differences, the reciprocal with its guard (abs,
+# compare, select, divide) and 8 for the window (u + v and 7 compares)
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+BOX_OPS = 25
+TRI_OPS = 56
+# bytes a ray reads (o, d, t_min, t_max) and writes (t, u, v, tri and the
+# back face; the any-hit verdict)
+RAY_IN_BYTES = 32
+RAY_OUT_BYTES = {"closest": 17, "any": 1}
+# the packet kernels' frames against the per-ray kernels' frame: a hit
+# moves only on exact ties and at exactly t_max
+FRAME_RAY_TOL = 1e-3
+FRAME_PIXEL_SHARE = 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -86,6 +137,54 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def replaces(source: str) -> str:
+    """The TPU kernel a kernel source names on its "// Replaces:" line."""
+    for line in Path(source).read_text().splitlines():
+        match = re.match(r"//\s*Replaces:\s*(\S+:\d+)", line)
+        if match:
+            return match.group(1)
+    raise RuntimeError(f"{source} names no TPU kernel it replaces")
+
+
+def ptxas_report(lib) -> list[str]:
+    """Registers, stack frame and spills of each kernel specialization
+    (its template flags as in the source) in a library built by
+    ``native.build_library`` (ptxas -v, kept beside it)."""
+    from vulkanraytracing_torch import native
+
+    log = native.build_log(Path(lib._name)).read_text()
+    rows, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kernel = re.search(r"(?:closest2?|any2?|shared|subpacket)_kernel",
+                               mangled).group(0)
+            flags = re.findall(r"Lb([01])E", mangled[mangled.index(kernel):])
+            name = kernel + (f"<{','.join(flags)}>" if flags else "")
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                           r"(\d+) bytes spill loads", line)
+        if spills and name:
+            stack, st, ld = spills.groups()
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            rows.append(f"{name}: {regs.group(1)} registers, {stack} B stack, "
+                        f"spills {st} B stored / {ld} B loaded")
+            name = None
+    return rows
+
+
+def bound(kind: str, n_rays: int, table, counts: dict) -> tuple[float, str]:
+    """The least time the card could take for a traversal call: (ms, what
+    bounds it), from the bytes it must move and the tests the per-ray plain
+    version counted for the same rays."""
+    n_bytes = (n_rays * (RAY_IN_BYTES + RAY_OUT_BYTES[kind])
+               + sum(t.numel() * t.element_size() for t in table))
+    ops = counts["box_tests"] * BOX_OPS + counts["tri_tests"] * TRI_OPS
+    byte_ms, op_ms = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
 def camera_rays(width, height, camera_cfg, device):
@@ -111,16 +210,30 @@ def random_rays(n, lo, hi, seed, device):
     return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
 
+def timed(fn):
+    """(fn(), its milliseconds by CUDA events) for one run."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def compare(tw, table, o, d, t_min, t_max, label, culls=(True, False),
-            any_hit=True, reps=20):
+            any_hit=True, reps=20, exact=False):
     """Kernel against plain version of the traversal module ``tw``
-    (``ops.traverse_wide8`` or ``ops.traverse_wide``) for closest hit
-    (with each culling setting in ``culls``) and any-hit.  Returns
-    {"closest" (culling on) / "any": (max_abs_err, kernel_ms, plain_ms)}."""
+    (``ops.traverse_wide8``, ``ops.traverse_wide``, ``ops.traverse_subpacket``
+    or ``ops.traverse_pallas``) for closest hit (with each culling setting
+    in ``culls``) and any-hit.  With ``exact`` every field must be equal and
+    a second kernel run must equal the first.  Returns {"closest" (culling
+    on) / "any": (max_abs_err, kernel_ms, plain_ms)}; the plain version
+    runs once and that run is timed."""
     out = {}
     for cull in culls:
         k = tw.closest_cuda(table, o, d, t_min, t_max, cull)
-        p = tw.closest_plain(table, o, d, t_min, t_max, cull)
+        p, p_ms = timed(lambda: tw.closest_plain(table, o, d, t_min, t_max, cull))
         hit = p.is_hit
         check(torch.equal(k.is_hit, hit), f"{label} closest cull={cull}: is_hit")
         check(torch.equal(k.tri[hit], p.tri[hit]), f"{label} cull={cull}: tri")
@@ -132,24 +245,67 @@ def compare(tw, table, o, d, t_min, t_max, label, culls=(True, False),
                   f"{label} cull={cull}: {name} within rtol {RTOL}")
             if a.numel():
                 err = max(err, float((a - b).abs().max()))
+        if exact:
+            again = tw.closest_cuda(table, o, d, t_min, t_max, cull)
+            for name, a, b, c in zip(p._fields, k, p, again):
+                check(torch.equal(a, b), f"{label} cull={cull}: {name} bit-equal")
+                check(torch.equal(a, c), f"{label} cull={cull}: {name} alike twice")
         k_ms = cuda_ms(lambda: tw.closest_cuda(table, o, d, t_min, t_max, cull), reps)
-        p_ms = cuda_ms(lambda: tw.closest_plain(table, o, d, t_min, t_max, cull), 1)
         print(f"  {label} closest cull={cull}: {int(hit.sum())}/{hit.numel()} hits, "
-              f"equal (max |t,u,v diff| {err:.3g}); kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.1f} ms", flush=True)
+              f"equal (max |t,u,v diff| {err:.3g}{', every field, twice' if exact else ''}); "
+              f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
         if cull:
             out["closest"] = (err, k_ms, p_ms)
     if not any_hit:
         return out
     k = tw.any_cuda(table, o, d, t_min, t_max)
-    p = tw.any_plain(table, o, d, t_min, t_max)
+    p, p_ms = timed(lambda: tw.any_plain(table, o, d, t_min, t_max))
     check(torch.equal(k, p), f"{label} any-hit verdicts")
+    if exact:
+        check(torch.equal(k, tw.any_cuda(table, o, d, t_min, t_max)),
+              f"{label} any-hit verdicts alike twice")
     k_ms = cuda_ms(lambda: tw.any_cuda(table, o, d, t_min, t_max), reps)
-    p_ms = cuda_ms(lambda: tw.any_plain(table, o, d, t_min, t_max), 1)
-    print(f"  {label} any-hit: {int(k.sum())}/{k.numel()} occluded, equal; "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
+    print(f"  {label} any-hit: {int(k.sum())}/{k.numel()} occluded, equal"
+          f"{', twice' if exact else ''}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms",
+          flush=True)
     out["any"] = (0.0, k_ms, p_ms)
     return out
+
+
+def per_ray_work(tw, table, closest_rays, shadow_rays) -> dict:
+    """The slab and triangle tests that the per-ray plain version of ``tw``
+    (``ops.traverse_wide8`` or ``ops.traverse_wide``) makes for the frame's
+    primary rays (closest hit, culling on) and its shadow rays (any-hit),
+    counted in runs of their own so that no timed run counts."""
+    work = {"closest": {}, "any": {}}
+    tw.closest_plain(table, *closest_rays, counts=work["closest"])
+    tw.any_plain(table, *shadow_rays, counts=work["any"])
+    return work
+
+
+def frame_gate(name, img, rays, ref_img, ref_rays) -> None:
+    """A frame through a packet backend against the ``BVH_KERNEL`` frame
+    from the same state: finite and lit, ray counts within
+    ``FRAME_RAY_TOL``, at most ``FRAME_PIXEL_SHARE`` of the pixels more
+    than 1/255 apart."""
+    check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.0,
+          f"{name} image finite and not black")
+    far = ((img - ref_img).abs() > 1.0 / 255.0 + 1e-6).any(dim=-1)
+    share = float(far.float().mean())
+    print(f"[8 packet] {name} frame 0 against BVH_KERNEL frame 0: rays {rays} vs "
+          f"{ref_rays} ({(rays - ref_rays) / ref_rays:+.2e}); {int(far.sum())} pixels "
+          f"({share:.2e}) more than 1/255 apart, "
+          f"{int((img != ref_img).any(dim=-1).sum())} differ at all", flush=True)
+    check(abs(rays - ref_rays) <= FRAME_RAY_TOL * ref_rays,
+          f"{name} ray count within {FRAME_RAY_TOL}")
+    check(share <= FRAME_PIXEL_SHARE, f"{name} pixels within {FRAME_PIXEL_SHARE}")
+
+
+def launch_counts(kernels) -> dict:
+    """Launches so far of every kernel specialization, by JSON name."""
+    return {f"{name}_{kind}": module.LAUNCHES[key]
+            for name, (module, keys) in kernels.items()
+            for kind, key in zip(("closest", "any"), keys)}
 
 
 def main_path_rays(scene, device, tw, table):
@@ -262,6 +418,8 @@ def main() -> int:
     from vulkanraytracing_torch.accel.lbvh import build_bvh, build_scene_bvh
     from vulkanraytracing_torch.app.engine import Engine
     from vulkanraytracing_torch.config import CameraConfig, Config, TraversalMode
+    from vulkanraytracing_torch.ops import traverse_pallas as tpal
+    from vulkanraytracing_torch.ops import traverse_subpacket as tsub
     from vulkanraytracing_torch.ops import traverse_wide as tw2
     from vulkanraytracing_torch.ops import traverse_wide8 as tw
     from vulkanraytracing_torch.pt.render import (
@@ -273,23 +431,29 @@ def main() -> int:
     )
 
     device = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"[1 device] {kind}; {torch.cuda.device_count()} visible; "
+    print(f"[1 device] {card}; {torch.cuda.device_count()} visible; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(f"[1 device] nvidia-smi: {smi}", flush=True)
 
+    # each kernel: its module and its LAUNCHES keys (closest, any-hit)
+    kernels = {"bvh8": (tw, ("closest", "any")), "bvh2": (tw2, ("closest2", "any2")),
+               "subpacket": (tsub, ("closest", "any")), "shared": (tpal, ("closest", "any"))}
+
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    builds = (tw.cuda_library, tw2.cuda_library, sah._library, bvh8._library)
+    builds = [m.cuda_library for m, _ in kernels.values()] + [sah._library, bvh8._library]
     with ThreadPoolExecutor(len(builds)) as pool:
-        for future in [pool.submit(build) for build in builds]:
-            future.result()
-    print(f"[2 build] BVH8 and BVH2 traversal kernels (nvcc sm_90a) and native "
+        libs = [future.result() for future in [pool.submit(build) for build in builds]]
+    print(f"[2 build] the four traversal kernels (nvcc sm_90a) and the native "
           f"builders, in parallel: {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, lib in zip(kernels, libs):
+        for row in ptxas_report(lib):
+            print(f"[2 build] ptxas {name} {row}", flush=True)
 
     # -- 3. kernel against plain version ------------------------------
     t0 = time.perf_counter()
@@ -319,12 +483,16 @@ def main() -> int:
         t_max[::251] = 0.0
         compare(tw, tw.get_table8(scene.bvh), o, d, t_min, t_max, label)
 
-    table = tw.get_table8(v1.bvh)
-    closest_rays, shadow_rays = main_path_rays(v1, device, tw, table)
+    table8 = tw.get_table8(v1.bvh)
+    v1_closest, v1_shadow = main_path_rays(v1, device, tw, table8)
     print("[3 kernel] at the 1080p frame's shapes:", flush=True)
-    main_closest = compare(tw, table, *closest_rays, "frame primary", culls=(True,),
-                           any_hit=False, reps=5)["closest"]
-    main_any = compare(tw, table, *shadow_rays, "frame shadow", culls=(), reps=5)["any"]
+    result = {"bvh8_closest": compare(tw, table8, *v1_closest, "frame primary", culls=(True,),
+                                      any_hit=False, reps=5)["closest"],
+              "bvh8_any": compare(tw, table8, *v1_shadow, "frame shadow", culls=(),
+                                  reps=5)["any"]}
+    work8 = per_ray_work(tw, table8, v1_closest, v1_shadow)
+    bounds = {f"bvh8_{kind}": bound(kind, rays[0].shape[0], table8, work8[kind])
+              for kind, rays in (("closest", v1_closest), ("any", v1_shadow))}
 
     # -- 4. the slice against brute force -------------------------------
     cornell = build_scene_bvh(cornell_box_scene(device=device))
@@ -355,6 +523,7 @@ def main() -> int:
     tw.LAUNCHES.clear()
     tw2.LAUNCHES.clear()
     frame_ms = []
+    main_cfg, main_camera = cfg, camera
     for frame in range(3):
         before = dict(tw.LAUNCHES)
         torch.cuda.synchronize()
@@ -371,7 +540,9 @@ def main() -> int:
         print(f"[5 main] frame {frame}: {ms:.1f} ms, {rays} rays, "
               f"{rays / ms / 1e3:.2f} Mrays/s; launches closest {n_closest}, "
               f"any {n_any}", flush=True)
-    launches = dict(tw.LAUNCHES)
+        if frame == 0:
+            first_frame = (state.accumulation.clone(), rays)
+    launches = launch_counts(kernels)
     check(not any(tw2.LAUNCHES.values()), f"v1 frames launched BVH2 kernels: {tw2.LAUNCHES}")
     img = state.accumulation
     check(tuple(img.shape) == (1080, 1920, 3), f"image shape {tuple(img.shape)}")
@@ -390,11 +561,11 @@ def main() -> int:
     _, soup_bvh = build_bvh(triangle_soup_scene(20000, seed=1, device=device).geometry)
     co, cd, _, _ = camera_rays(256, 128, cases["soup20k"][1], device)
     ro, rd = random_rays(n_half, -10.0, 10.0, seed=5, device=device)
-    o, d = torch.cat([co, ro]), torch.cat([cd, rd])
-    t_min = torch.full((2 * n_half,), 1e-3, device=device)
-    t_max = torch.full((2 * n_half,), 1e3, device=device)
-    t_max[::251] = 0.0
-    compare(tw2, tw2.get_table2(soup_bvh), o, d, t_min, t_max, "soup20k LBVH")
+    soup_rays = (torch.cat([co, ro]), torch.cat([cd, rd]),
+                 torch.full((2 * n_half,), 1e-3, device=device),
+                 torch.full((2 * n_half,), 1e3, device=device))
+    soup_rays[3][::251] = 0.0
+    compare(tw2, tw2.get_table2(soup_bvh), *soup_rays, "soup20k LBVH")
 
     hall, inst, animation = instanced_hall(device)
 
@@ -414,9 +585,14 @@ def main() -> int:
     closest_rays, shadow_rays = main_path_rays(hall._replace(geometry=geom, bvh=dyn_bvh),
                                                device, tw2, table2)
     print("[6 bvh2] at the dynamic 1080p frame's shapes:", flush=True)
-    dyn_closest = compare(tw2, table2, *closest_rays, "dynamic primary",
-                          any_hit=False, reps=5)["closest"]
-    dyn_any = compare(tw2, table2, *shadow_rays, "dynamic shadow", culls=(), reps=5)["any"]
+    result["bvh2_closest"] = compare(tw2, table2, *closest_rays, "dynamic primary",
+                                     any_hit=False, reps=5)["closest"]
+    result["bvh2_any"] = compare(tw2, table2, *shadow_rays, "dynamic shadow", culls=(),
+                                 reps=5)["any"]
+    work2 = per_ray_work(tw2, table2, closest_rays, shadow_rays)
+    for kind, rays in (("closest", closest_rays), ("any", shadow_rays)):
+        bounds[f"bvh2_{kind}"] = bound(kind, rays[0].shape[0], table2, work2[kind])
+    del closest_rays, shadow_rays
 
     # -- 7. the dynamic path through Engine -------------------------------
     cfg = Config(width=1920, height=1080, max_bounce_count=4,
@@ -482,7 +658,7 @@ def main() -> int:
             moving_ms.append(ms)
         if frame == 4:
             moved_img = eng.state.accumulation.clone()
-    launches2 = dict(tw2.LAUNCHES)
+    launches.update({k: n for k, n in launch_counts(kernels).items() if k.startswith("bvh2")})
     tlas.refit_tlas = refit
     img = eng.state.accumulation
     check(tuple(img.shape) == (1080, 1920, 3), f"dynamic image shape {tuple(img.shape)}")
@@ -506,26 +682,94 @@ def main() -> int:
     profile_frame(eng.draw, sum(moving_ms) / len(moving_ms), args.save_dir,
                   "dynamic_frame_trace.json")
 
-    kernels = [
-        {"name": "bvh8_closest", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches.get("closest", 0),
-         "max_abs_err": main_closest[0], "ms": main_closest[1],
-         "plain_ms": main_closest[2]},
-        {"name": "bvh8_any", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches.get("any", 0),
-         "max_abs_err": main_any[0], "ms": main_any[1], "plain_ms": main_any[2]},
-        {"name": "bvh2_closest", "route": "cuda", "source": KERNEL2_SOURCE,
-         "replaces": TPU_KERNEL2, "launches": launches2.get("closest2", 0),
-         "max_abs_err": dyn_closest[0], "ms": dyn_closest[1],
-         "plain_ms": dyn_closest[2]},
-        {"name": "bvh2_any", "route": "cuda", "source": KERNEL2_SOURCE,
-         "replaces": TPU_KERNEL2, "launches": launches2.get("any2", 0),
-         "max_abs_err": dyn_any[0], "ms": dyn_any[1], "plain_ms": dyn_any[2]},
-    ]
+    # -- 8. the packet kernels ----------------------------------------------
+    packet = {"subpacket": TraversalMode.BVH_SUBPACKET, "shared": TraversalMode.BVH_SHARED}
+    soup_sah = build_scene_bvh(triangle_soup_scene(20000, seed=1, device=device), builder="sah")
+    for tree, bvh in (("LBVH", soup_bvh), ("SAH", soup_sah.bvh)):
+        for name in packet:
+            compare(kernels[name][0], tw2.get_table2(bvh), *soup_rays,
+                    f"[8 packet] soup20k {tree} {name}", reps=5, exact=True)
+    table2 = tw2.get_table2(v1.bvh)
+    print(f"[8 packet] at the 1080p v1 frame's shapes, over the SAH tree's 2-wide "
+          f"arrays ({table2.nodes.shape[0]} nodes, stack need {tw2.stack_need(v1.bvh)} "
+          f"of {tw2.STACK_DEPTH}):", flush=True)
+    work = per_ray_work(tw2, table2, v1_closest, v1_shadow)
+    print(f"[8 packet] the per-ray plain version's work on these rays: {work}", flush=True)
+    for name in packet:
+        module = kernels[name][0]
+        result[f"{name}_closest"] = compare(module, table2, *v1_closest, "frame primary " + name,
+                                            culls=(True,), any_hit=False, reps=5,
+                                            exact=True)["closest"]
+        result[f"{name}_any"] = compare(module, table2, *v1_shadow, "frame shadow " + name,
+                                        culls=(), reps=5, exact=True)["any"]
+        for kind, rays in (("closest", v1_closest), ("any", v1_shadow)):
+            bounds[f"{name}_{kind}"] = bound(kind, rays[0].shape[0], table2, work[kind])
+
+    ref_img, ref_rays = first_frame
+    for name, mode in packet.items():
+        cfg = main_cfg.replace(traversal=mode)
+        state = create_render_state(cfg, device)
+        torch.cuda.synchronize()
+        for module, _ in kernels.values():
+            module.LAUNCHES.clear()
+        for frame in range(2):
+            before = launch_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, stats = render_frame(v1, cfg, main_camera, state)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rays = int(stats.rays)
+            n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+            check(n[f"{name}_closest"] >= 4 and n[f"{name}_any"] >= 4
+                  and not any(c for k, c in n.items() if not k.startswith(name)),
+                  f"{name} frame {frame}: launches {n}")
+            print(f"[8 packet] {mode.name} frame {frame}: {ms:.1f} ms, {rays} rays, "
+                  f"{rays / ms / 1e3:.2f} Mrays/s; launches "
+                  + ", ".join(f"{k} {c}" for k, c in n.items()), flush=True)
+            if frame == 0:
+                img = state.accumulation
+                frame_gate(mode.name, img, rays, ref_img, ref_rays)
+                if args.save_dir is not None:
+                    np.save(args.save_dir / f"{name}_frame.npy", img[::4, ::4].cpu().numpy())
+        launches.update({k: c for k, c in launch_counts(kernels).items() if k.startswith(name)})
+
+    # the plain packet backend (TraversalMode.BVH, no kernel of its own):
+    # one frame with the depth cut to 1 bounce (its lockstep loop takes
+    # seconds a call on the incoherent rays of deeper bounces), against a
+    # BVH_KERNEL frame of the same depth
+    cfg = main_cfg.replace(max_bounce_count=1)
+    ref, ref_stats = render_frame(v1, cfg, main_camera, create_render_state(cfg, device))
+    cfg = cfg.replace(traversal=TraversalMode.BVH)
+    before = launch_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = render_frame(v1, cfg, main_camera, create_render_state(cfg, device))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rays = int(stats.rays)
+    n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+    check(not any(n.values()), f"BVH frame launched kernels: {n}")
+    print(f"[8 packet] BVH frame 0, 1 bounce: {ms:.1f} ms, {rays} rays, "
+          f"{rays / ms / 1e3:.2f} Mrays/s; no kernel launched", flush=True)
+    frame_gate("BVH (1 bounce)", state.accumulation, rays, ref.accumulation,
+               int(ref_stats.rays))
+
+    lines = []
+    for key, (err, ms, plain_ms) in result.items():
+        name = key.rsplit("_", 1)[0]
+        bound_ms, bound_by = bounds[key]
+        lines.append({"name": key, "route": "cuda", "source": SOURCES[name],
+                      "replaces": replaces(SOURCES[name]), "launches": launches[key],
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
+              f"in the frames of its path", flush=True)
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 
 

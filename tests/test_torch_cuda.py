@@ -1,5 +1,7 @@
-"""The BVH8 and BVH2 traversal kernels on the card against their plain
-versions, and the slice through the BVH8 kernel against brute force.
+"""The traversal kernels on the card against their plain versions (BVH8,
+BVH2, subpacket and shared cursor), the subpacket kernel's persistent
+blocks run twice, the plain packet backend on the card against the CPU,
+and the slice through the BVH8 kernel against brute force.
 
 Marked ``gpu``: the CUDA kernel has no CPU mode, so these skip where no
 CUDA device is present (the CPU twin in ``test_torch_traverse.py`` covers
@@ -17,6 +19,9 @@ import torch
 
 from vulkanraytracing_torch.accel.lbvh import build_bvh, build_scene_bvh
 from vulkanraytracing_torch.config import CameraConfig, Config, TraversalMode
+from vulkanraytracing_torch.ops import traverse_packet as tpk
+from vulkanraytracing_torch.ops import traverse_pallas as tpal
+from vulkanraytracing_torch.ops import traverse_subpacket as tsub
 from vulkanraytracing_torch.ops import traverse_wide as tw2
 from vulkanraytracing_torch.ops import traverse_wide8 as tw
 from vulkanraytracing_torch.pt.render import render_progressive
@@ -92,6 +97,66 @@ def test_bvh2_any_kernel_matches_plain_and_counts(cuda):
     kernel = tw2.any_cuda(table, *rays)
     assert tw2.LAUNCHES["any2"] == before + 1
     assert torch.equal(kernel, tw2.any_plain(table, *rays))
+
+
+PACKET = {"subpacket": tsub, "shared": tpal}
+
+
+@pytest.mark.parametrize("name", sorted(PACKET))
+@pytest.mark.parametrize("cull", [True, False])
+def test_packet_closest_kernel_matches_plain(cuda, name, cull):
+    """The packet kernels read the 2-wide arrays of the BVH (here an LBVH)."""
+    module = PACKET[name]
+    table, rays = _case2(cuda)
+    before = module.LAUNCHES["closest"]
+    kernel = module.closest_cuda(table, *rays, cull_backface=cull)
+    assert module.LAUNCHES["closest"] == before + 1
+    plain = module.closest_plain(table, *rays, cull_backface=cull)
+    torch.cuda.synchronize()
+    assert plain.is_hit.sum() > 100
+    for field, a, b in zip(plain._fields, kernel, plain):
+        assert torch.equal(a, b), field
+
+
+@pytest.mark.parametrize("name", sorted(PACKET))
+def test_packet_any_kernel_matches_plain_and_counts(cuda, name):
+    module = PACKET[name]
+    table, rays = _case2(cuda)
+    before = module.LAUNCHES["any"]
+    kernel = module.any_cuda(table, *rays)
+    assert module.LAUNCHES["any"] == before + 1
+    assert torch.equal(kernel, module.any_plain(table, *rays))
+
+
+def test_subpacket_kernel_runs_alike_twice(cuda):
+    """Which block takes which packet from the work counter changes from
+    run to run; the results must not."""
+    table, rays = _case2(cuda)
+    for cull in (True, False):
+        first = tsub.closest_cuda(table, *rays, cull_backface=cull)
+        second = tsub.closest_cuda(table, *rays, cull_backface=cull)
+        for field, a, b in zip(first._fields, first, second):
+            assert torch.equal(a, b), field
+    assert torch.equal(tsub.any_cuda(table, *rays), tsub.any_cuda(table, *rays))
+
+
+def test_packet_backend_on_the_card_matches_the_cpu(cuda):
+    """The plain packet backend (``TraversalMode.BVH``) runs its lockstep
+    steps as CUDA graphs on the card and eagerly on the CPU: the same
+    operations, so the same hits; t, u, v within rtol 1e-6."""
+    _, host = build_bvh(triangle_soup_scene(20000, seed=1, device="cpu").geometry)
+    bvh = host.to(cuda)
+    rays = _rays(cuda, n=4096)
+    got = tpk.intersect_closest_packet(bvh, *rays)
+    want = tpk.intersect_closest_packet(host, *[x.cpu() for x in rays])
+    assert want.is_hit.sum() > 100
+    hit = want.is_hit
+    assert torch.equal(got.is_hit.cpu(), hit) and torch.equal(got.tri.cpu()[hit], want.tri[hit])
+    for name in ("t", "u", "v"):
+        assert torch.allclose(getattr(got, name).cpu()[hit], getattr(want, name)[hit],
+                              rtol=1e-6, atol=0.0), name
+    assert torch.equal(tpk.intersect_any_packet(bvh, *rays).cpu(),
+                       tpk.intersect_any_packet(host, *[x.cpu() for x in rays]))
 
 
 def test_cornell_through_kernel_matches_brute_force(cuda):

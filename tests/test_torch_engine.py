@@ -36,7 +36,7 @@ def _engine(**cfg_kw):
         width=16, height=16, traversal=TraversalMode.BRUTE_FORCE,
         camera=CameraConfig(position=(0.0, 0.0, 3.2), aspect_ratio=1.0), **cfg_kw,
     )
-    return Engine(cfg, cornell_box_scene(), device="cpu")
+    return Engine(cfg, cornell_box_scene(device="cpu"), device="cpu")
 
 
 def test_event_bus_dispatch():
@@ -109,7 +109,7 @@ def test_mode_toggle():
     eng.run(1)
     assert eng.display_image().shape == (16, 16, 3)
     with pytest.raises(NotImplementedError):
-        Engine(eng.cfg, cornell_box_scene(), mesh=object(), device="cpu")
+        Engine(eng.cfg, cornell_box_scene(device="cpu"), mesh=object(), device="cpu")
 
 
 def test_engine_device_is_required():
@@ -117,7 +117,7 @@ def test_engine_device_is_required():
     (and onto the plain traversal) by an Engine that was not told where
     to run."""
     with pytest.raises(TypeError, match="device"):
-        Engine(Config(width=8, height=8), cornell_box_scene())
+        Engine(Config(width=8, height=8), cornell_box_scene(device="cpu"))
     eng = _engine()
     assert eng.device == torch.device("cpu")
     assert eng.scene.geometry.v0.device == eng.device
@@ -158,7 +158,7 @@ def test_animated_instances_refit_and_reset():
     traversal, with an accumulation reset; the refitted image is bit-equal
     to one rendered over a from-scratch build at the same transforms, and
     a static frame accumulates."""
-    scene, soup, anim = animated_instances_demo(orbiters=2)
+    scene, soup, anim = animated_instances_demo(orbiters=2, device="cpu")
     cfg = Config(width=32, height=32, max_bounce_count=2,
                  traversal=TraversalMode.BVH_KERNEL, camera=CameraConfig(**DEMO_CAMERA))
     eng = Engine(cfg, scene, instances=soup, animation=anim, device="cpu")
@@ -172,7 +172,7 @@ def test_animated_instances_refit_and_reset():
     geom, bvh = build_bvh(world_geometry(soup, torch.from_numpy(anim(1))))
     ref_scene = eng.scene._replace(geometry=geom, bvh=bvh)
     cam = Camera(cfg.camera).to_device("cpu")
-    state, _ = render_frame(ref_scene, cfg, cam, create_render_state(cfg))
+    state, _ = render_frame(ref_scene, cfg, cam, create_render_state(cfg, "cpu"))
     assert torch.equal(state.accumulation, img_refit)
 
     # a static frame (same transforms) accumulates instead of resetting
@@ -197,7 +197,7 @@ def test_engine_matches_jax_on_animated_instances(tmp_path):
     jeng.run(2)
     want = np.asarray(jeng.state.accumulation)
 
-    scene, soup, anim = animated_instances_demo(orbiters=2)
+    scene, soup, anim = animated_instances_demo(orbiters=2, device="cpu")
     eng = Engine(Config(width=32, height=32, traversal=TraversalMode.BVH_KERNEL,
                         camera=CameraConfig(**DEMO_CAMERA)),
                  scene, instances=soup, animation=anim, device="cpu")

@@ -35,9 +35,9 @@ from vulkanraytracing_tpu.scene.types import make_trace_geometry as j_make
 
 torch.set_num_threads(1)
 
-SCENES = {
-    "soup960": lambda mod: mod.triangle_soup_scene(960, seed=3),
-    "cornell": lambda mod: mod.cornell_box_scene(),
+SCENES = {  # the port's scenes are asked for on the CPU (device="cpu")
+    "soup960": lambda mod, **kw: mod.triangle_soup_scene(960, seed=3, **kw),
+    "cornell": lambda mod, **kw: mod.cornell_box_scene(**kw),
 }
 BVH_FIELDS = ("nodes", "child_index", "tris", "tri_flags", "tri_order")
 
@@ -62,7 +62,7 @@ def _boxes_and_codes(mod_lbvh, geometry):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_morton_karras_refit_bit_equal(name):
-    jg, tg = SCENES[name](jproc).geometry, SCENES[name](tproc).geometry
+    jg, tg = SCENES[name](jproc).geometry, SCENES[name](tproc, device="cpu").geometry
     j_lo, j_hi, j_codes = _boxes_and_codes(jl, jg)
     t_lo, t_hi, t_codes = _boxes_and_codes(tl, tg)
     _eq(t_codes, j_codes, "morton codes")
@@ -85,7 +85,7 @@ def test_morton_karras_refit_bit_equal(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_build_bvh_bit_equal(name):
     jg, jb = jl.build_bvh(SCENES[name](jproc).geometry)
-    tg, tb = tl.build_bvh(SCENES[name](tproc).geometry)
+    tg, tb = tl.build_bvh(SCENES[name](tproc, device="cpu").geometry)
     for field in BVH_FIELDS:
         _eq(getattr(tb, field), getattr(jb, field), field)
     for field in tg._fields:
@@ -97,7 +97,7 @@ def test_build_bvh_bit_equal(name):
 def test_build_scene_bvh_defaults_to_lbvh():
     """The JAX package's default builder, and the same BVH8 collapse."""
     js = jl.build_scene_bvh(jproc.cornell_box_scene())
-    ts = tl.build_scene_bvh(tproc.cornell_box_scene())
+    ts = tl.build_scene_bvh(tproc.cornell_box_scene(device="cpu"))
     for field in BVH_FIELDS + ("nodes8", "child8", "tri_perm8"):
         _eq(getattr(ts.bvh, field), getattr(js.bvh, field), field)
 
@@ -105,7 +105,7 @@ def test_build_scene_bvh_defaults_to_lbvh():
 def test_single_triangle_leaf():
     tri = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     jg, jb = jl.build_bvh(j_make(tri, [[0, 1, 2]]))
-    tg, tb = tl.build_bvh(t_make(tri, [[0, 1, 2]]))
+    tg, tb = tl.build_bvh(t_make(tri, [[0, 1, 2]], device="cpu"))
     for field in BVH_FIELDS:
         _eq(getattr(tb, field), getattr(jb, field), field)
     o = torch.tensor([[0.2, 0.2, 1.0]])
@@ -131,7 +131,7 @@ def test_refit_levels_follow_readiness():
 
 def _spheres(radius=0.5):
     v, i = tproc.generate_sphere(radius, lat=6, lon=10)
-    return t_make(v, i), j_make(v, i)
+    return t_make(v, i, device="cpu"), j_make(v, i)
 
 
 def _transforms(positions, scale=1.0, mirror_x=()):
@@ -155,7 +155,7 @@ def _rays(n=256, seed=0, extent=6.0):
 
 
 def _scene(geom, bvh):
-    return tproc.cornell_box_scene()._replace(geometry=geom, bvh=bvh)
+    return tproc.cornell_box_scene(device="cpu")._replace(geometry=geom, bvh=bvh)
 
 
 CFG = Config(traversal=TraversalMode.BVH_KERNEL)
@@ -242,7 +242,7 @@ def test_world_geometry_matches_jax():
     and tangents within 1e-6, the mirrored instance's winding swapped."""
     t_blas, j_blas = _spheres()
     j_soup = jt.make_instances([j_blas], [0, 0, 0], material_offsets=[0, 2, 1])
-    t_soup = soup_from_numpy(jax.tree.map(np.asarray, j_soup))
+    t_soup = soup_from_numpy(jax.tree.map(np.asarray, j_soup), device="cpu")
     c, s = np.cos(0.7), np.sin(0.7)
     rot = np.eye(4, dtype=np.float32)
     rot[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
@@ -269,7 +269,7 @@ def test_build_and_refit_tlas_bit_equal_to_jax():
     refit after a move are bit-equal to the JAX package's."""
     _, j_blas = _spheres()
     j_soup = jt.make_instances([j_blas], [0, 0, 0], material_offsets=[0, 1, 2])
-    t_soup = soup_from_numpy(jax.tree.map(np.asarray, j_soup))
+    t_soup = soup_from_numpy(jax.tree.map(np.asarray, j_soup), device="cpu")
     t0 = _transforms([(-2, 0, 0), (0, 0, 0), (2, 1, 0)], mirror_x=(2,))
     t1 = _transforms([(-2, 0, 1), (0, 2, 0), (2, 1, 0)], mirror_x=(2,))
 
@@ -294,7 +294,7 @@ def test_refit_single_triangle_bit_equal_to_jax():
     by the same route as the build, as the JAX package's does."""
     tri = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     j_soup = jt.make_instances([j_make(tri, [[0, 1, 2]])], [0])
-    t_soup = tt.make_instances([t_make(tri, [[0, 1, 2]])], [0])
+    t_soup = tt.make_instances([t_make(tri, [[0, 1, 2]], device="cpu")], [0])
     t0, t1 = _transforms([(0, 0, 0)]), _transforms([(1, 2, 3)])
     _, j_bvh, j_order = jt.build_tlas(j_soup, jnp.asarray(t0))
     _, t_bvh, t_order = tt.build_tlas(t_soup, torch.from_numpy(t0))
@@ -306,11 +306,11 @@ def test_refit_single_triangle_bit_equal_to_jax():
 
 
 def test_refit_refuses_trees_it_cannot_refit():
-    scene = tl.build_scene_bvh(tproc.cornell_box_scene())
+    scene = tl.build_scene_bvh(tproc.cornell_box_scene(device="cpu"))
     blas, _ = _spheres()
     soup = tt.make_instances([blas], [0])
     with pytest.raises(ValueError, match="8-wide"):
         tt.refit_tlas(scene.bvh, soup, torch.from_numpy(_transforms([(0, 0, 0)])))
-    _, sah = build_bvh_sah(tproc.cornell_box_scene().geometry)  # no topology
+    _, sah = build_bvh_sah(tproc.cornell_box_scene(device="cpu").geometry)  # no topology
     with pytest.raises(ValueError, match="topology"):
         tt.refit_tlas(sah, soup, torch.from_numpy(_transforms([(0, 0, 0)])))

@@ -24,10 +24,10 @@ from vulkanraytracing_tpu.scene.camera import Camera as JCamera
 
 torch.set_num_threads(1)
 
-SCENES = {
-    "cornell": lambda mod: mod.cornell_box_scene(),
-    "soup960": lambda mod: mod.triangle_soup_scene(960),
-    "sponza40k": lambda mod: mod.sponza_like_scene(40000),
+SCENES = {  # the port's scenes are asked for on the CPU (device="cpu")
+    "cornell": lambda mod, **kw: mod.cornell_box_scene(**kw),
+    "soup960": lambda mod, **kw: mod.triangle_soup_scene(960, **kw),
+    "sponza40k": lambda mod, **kw: mod.sponza_like_scene(40000, **kw),
 }
 
 BVH_FIELDS = ("nodes", "child_index", "tris", "tri_flags", "tri_order",
@@ -43,7 +43,7 @@ def _eq(got: torch.Tensor, want, name: str):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_scene_arrays_equal(name):
-    js, ts = SCENES[name](jproc), SCENES[name](tproc)
+    js, ts = SCENES[name](jproc), SCENES[name](tproc, device="cpu")
     for group in ("geometry", "materials", "direct_light"):
         jg, tg = getattr(js, group), getattr(ts, group)
         for field in tg._fields:
@@ -58,7 +58,7 @@ def test_scene_arrays_equal(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_sah_bvh_bit_equal(name):
     js = j_build(SCENES[name](jproc), builder="sah")
-    ts = t_build(SCENES[name](tproc), builder="sah")
+    ts = t_build(SCENES[name](tproc, device="cpu"), builder="sah")
     assert js.bvh.nodes8 is not None
     for field in BVH_FIELDS:
         _eq(getattr(ts.bvh, field), getattr(js.bvh, field), field)
@@ -68,7 +68,7 @@ def test_sah_bvh_bit_equal(name):
 
 def test_convert_carries_the_jax_scene():
     js = j_build(jproc.cornell_box_scene(), builder="sah")
-    ts = scene_from_numpy(jax.tree.map(np.asarray, js))
+    ts = scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
     for field in BVH_FIELDS:
         _eq(getattr(ts.bvh, field), getattr(js.bvh, field), field)
     _eq(ts.geometry.material_id, js.geometry.material_id, "material_id")
@@ -79,11 +79,11 @@ def test_camera_matches():
     kw = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0),
               aspect_ratio=1920 / 1080)
     jc = JCamera(JCameraConfig(**kw)).to_device()
-    tc = TCamera(TCameraConfig(**kw)).to_device()
+    tc = TCamera(TCameraConfig(**kw)).to_device("cpu")
     _eq(tc.inverse_view, jc.inverse_view, "inverse_view")
     _eq(tc.inverse_proj, jc.inverse_proj, "inverse_proj")
     assert tc.z_near == float(jc.z_near) and tc.z_far == float(jc.z_far)
-    carried = camera_from_numpy(jax.tree.map(np.asarray, jc))
+    carried = camera_from_numpy(jax.tree.map(np.asarray, jc), device="cpu")
     assert torch.equal(carried.inverse_proj, tc.inverse_proj)
 
 
@@ -91,9 +91,9 @@ def test_unported_features_raise():
     """The real workload is not ported; an unknown builder is refused
     (``builder="lbvh"``, the default, is ported)."""
     with pytest.raises(NotImplementedError):
-        tproc.sponza_like_scene(4000, workload="real")
+        tproc.sponza_like_scene(4000, workload="real", device="cpu")
     with pytest.raises(ValueError, match="builder"):
-        t_build(tproc.cornell_box_scene(), builder="median")
+        t_build(tproc.cornell_box_scene(device="cpu"), builder="median")
 
 
 def test_textures_and_alpha_refused_where_scenes_are_made():
@@ -101,12 +101,12 @@ def test_textures_and_alpha_refused_where_scenes_are_made():
     across or given a BVH), so the frame loop needs no check."""
     tri = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     with pytest.raises(NotImplementedError, match="alpha"):
-        make_trace_geometry(tri, [[0, 1, 2]], alpha_test=True)
+        make_trace_geometry(tri, [[0, 1, 2]], alpha_test=True, device="cpu")
     js = jproc.cornell_box_scene()
     alpha = js.geometry._replace(alpha_test=np.ones_like(np.asarray(js.geometry.alpha_test)))
     with pytest.raises(NotImplementedError, match="alpha"):
-        scene_from_numpy(jax.tree.map(np.asarray, js._replace(geometry=alpha)))
-    ts = tproc.cornell_box_scene()
+        scene_from_numpy(jax.tree.map(np.asarray, js._replace(geometry=alpha)), device="cpu")
+    ts = tproc.cornell_box_scene(device="cpu")
     flagged = ts.geometry._replace(alpha_test=torch.ones_like(ts.geometry.alpha_test))
     with pytest.raises(NotImplementedError, match="alpha"):
         t_build(ts._replace(geometry=flagged))

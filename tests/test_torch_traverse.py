@@ -51,7 +51,7 @@ def _rays(n, extent, seed):
 def _both(jscene):
     """(JAX scene, port scene on the CPU) sharing one SAH-built BVH."""
     js = build_scene_bvh(jscene, builder="sah")
-    return js, scene_from_numpy(jax.tree.map(np.asarray, js))
+    return js, scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
 
 
 def _j(rays):

@@ -51,12 +51,12 @@ def _t(rays):
 
 @pytest.fixture(scope="module")
 def soup():
-    return build_bvh(tproc.triangle_soup_scene(960, seed=3).geometry)
+    return build_bvh(tproc.triangle_soup_scene(960, seed=3, device="cpu").geometry)
 
 
 @pytest.fixture(scope="module")
 def cornell():
-    return build_bvh(tproc.cornell_box_scene().geometry)
+    return build_bvh(tproc.cornell_box_scene(device="cpu").geometry)
 
 
 def _assert_equal(got, want):
@@ -98,7 +98,7 @@ def test_port_matches_jax_traverse_wide():
     """One closest and one any-hit call of the JAX kernel (interpret
     mode), 300 rays with every third t_max = 0, on the JAX LBVH."""
     jg, jb = jl.build_bvh(jproc.triangle_soup_scene(960, seed=3).geometry)
-    _, tb = build_bvh(tproc.triangle_soup_scene(960, seed=3).geometry)
+    _, tb = build_bvh(tproc.triangle_soup_scene(960, seed=3, device="cpu").geometry)
     assert torch.equal(tb.nodes, torch.from_numpy(np.array(jb.nodes)))
     o, d, tmin, tmax = _rays(300, 11.0, seed=4)
     tmax[::3] = 0.0
@@ -134,7 +134,7 @@ def _tie_bvh():
         vs.append(quad_v + np.array([0, 0, dz], np.float32))
         idx.append(quad_i + 4 * k)
     return build_bvh(make_trace_geometry(np.concatenate(vs), np.concatenate(idx),
-                                         cull_disable=True))
+                                         cull_disable=True, device="cpu"))
 
 
 def _tie_rays(jitter: bool):
@@ -233,7 +233,7 @@ def test_trace_dispatch_by_bvh_shape(monkeypatch):
     monkeypatch.setattr(tw2, "intersect_closest", lambda *a, **k: calls.append("2"))
     monkeypatch.setattr(tw2, "intersect_any", lambda *a, **k: calls.append("2any"))
     cfg = Config(traversal=TraversalMode.BVH_KERNEL)
-    flat = build_scene_bvh(tproc.cornell_box_scene())
+    flat = build_scene_bvh(tproc.cornell_box_scene(device="cpu"))
     geom, bvh2 = build_bvh(flat.geometry)
     for scene in (flat, flat._replace(geometry=geom, bvh=bvh2)):
         trace.trace_closest(scene, cfg, None, None, None, None)

@@ -1,7 +1,8 @@
 """Host-side BVH2 -> BVH8 collapse.
 
 Counterpart of ``vulkanraytracing_tpu/accel/bvh8.py``.  The collapse is
-the JAX package's ``native/bvh8_collapse.cpp`` (SAH-greedy: expand the
+``csrc/bvh8_collapse.cpp``, a byte-equal copy of the JAX package's
+``native/bvh8_collapse.cpp`` (SAH-greedy: expand the
 largest-area interior slot until 8 slots are filled, emit slots largest
 first; empty slots get child 0 and a degenerate far box lo = hi = +3e38,
 which the slab test rejects for every ray).  A failed native build raises:
@@ -31,7 +32,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    src = native.JAX_NATIVE_DIR / "bvh8_collapse.cpp"
+    src = native.CSRC_DIR / "bvh8_collapse.cpp"
     path = native.build_library("bvh8_collapse", native.GXX, [src])
     return native.load_library(path, {
         "collapse_bvh8": (ctypes.c_int, [

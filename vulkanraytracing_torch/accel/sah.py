@@ -1,7 +1,8 @@
 """ctypes bridge to the native binned-SAH BVH builder.
 
-Counterpart of ``vulkanraytracing_tpu/accel/sah.py``.  The builder is the
-JAX package's ``native/sah_builder.cpp``, compiled here by path with the
+Counterpart of ``vulkanraytracing_tpu/accel/sah.py``.  The builder is
+``csrc/sah_builder.cpp``, a byte-equal copy of the JAX package's
+``native/sah_builder.cpp`` (a test holds the two equal), compiled with the
 same g++ flags into the port's own build directory, so both packages
 build bit-identical trees from the same triangles.
 """
@@ -24,7 +25,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    src = native.JAX_NATIVE_DIR / "sah_builder.cpp"
+    src = native.CSRC_DIR / "sah_builder.cpp"
     path = native.build_library("sah_builder", native.GXX, [src])
     return native.load_library(path, {
         "build_sah_bvh": (ctypes.c_int, [

@@ -20,15 +20,26 @@ class RenderMode(enum.Enum):
 
 
 class TraversalMode(enum.Enum):
-    """Which trace backend to use.  Both implement the same ``Hit``
-    contract (``ops.intersect.Hit``)."""
+    """Which trace backend to use: interchangeable implementations of the
+    ``Hit`` contract (``ops.intersect.Hit``), as the JAX package's switch.
+    The kernels run CUDA on the card and their plain torch versions for
+    CPU tensors.  The packet kernels keep their TPU counterparts' window
+    (a hit exactly at t_max is not committed; equal-t ties follow visit
+    order), the others commit it and break ties to the lowest id."""
 
     BRUTE_FORCE = "brute_force"  # O(R*T) Moller-Trumbore oracle, plain torch
+    BVH = "bvh"                  # the JAX package's BVH: packet traversal
+    #                              in plain torch (ops.traverse_packet)
     BVH_KERNEL = "bvh_kernel"    # the JAX package's BVH_PALLAS: the BVH8
     #                              kernel when the BVH has its 8-wide
-    #                              collapse, the BVH2 kernel otherwise (CUDA
-    #                              on the card, their plain torch versions
-    #                              for CPU tensors)
+    #                              collapse, the BVH2 kernel otherwise
+    BVH_SUBPACKET = "bvh_subpacket"  # the JAX package's BVH_PALLAS_SUBPACKET:
+    #                              one cursor per 128-ray packet, persistent
+    #                              blocks with work refill
+    #                              (ops.traverse_subpacket)
+    BVH_SHARED = "bvh_shared"    # the JAX package's BVH_PALLAS_SHARED: one
+    #                              shared cursor per 1024-ray packet
+    #                              (ops.traverse_pallas)
 
 
 @dataclasses.dataclass(frozen=True)

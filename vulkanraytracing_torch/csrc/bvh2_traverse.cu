@@ -2,6 +2,7 @@
 // One thread per ray, 128 threads per block, one launch per call on the
 // caller's stream.  Plain C interface, loaded with ctypes; each function
 // returns cudaGetLastError() right after its launch.
+// Replaces: vulkanraytracing_tpu/ops/traverse_wide.py:136 (_kernel)
 #include <cuda_runtime.h>
 
 #include "bvh2_traverse.cuh"

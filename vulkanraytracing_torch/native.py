@@ -1,10 +1,10 @@
 """Compile-on-first-use shared libraries, loaded with ctypes.
 
 Every native piece of the port is a shared library with a plain C
-interface: the SAH builder and the BVH8 collapse (the JAX package's C++
-sources, reused by path and built with g++), the BVH8 and BVH2 traversal
-kernels (``csrc/``, built with nvcc for ``sm_90a``) and their CPU twins
-(the same headers built with g++, used by the tests).
+interface, built from the port's own ``csrc/``: the SAH builder and the
+BVH8 collapse (byte-equal copies of the JAX package's C++ sources, built
+with g++), the traversal kernels (built with nvcc for ``sm_90a``) and
+their CPU twins (the same headers built with g++, used by the tests).
 
 A library is written to ``vulkanraytracing_torch/build/`` under a name
 keyed by a hash of its sources and its command line, so a changed source
@@ -26,8 +26,6 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "build"
 CSRC_DIR = PACKAGE_DIR / "csrc"
-# The JAX package's native builders; read by path, never imported.
-JAX_NATIVE_DIR = PACKAGE_DIR.parent / "vulkanraytracing_tpu" / "native"
 
 GXX = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = [
@@ -37,6 +35,9 @@ NVCC_FLAGS = [
     # as PyTorch's separate elementwise ops do, so it can match its plain
     # version bit for bit on the card
     "-fmad=false",
+    # ptxas reports each kernel's registers, stack frame and spills; the
+    # report is kept beside the library (``build_log``)
+    "-Xptxas", "-v",
 ]
 
 
@@ -75,8 +76,16 @@ def build_library(
             f"building {name} failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
+    log = proc.stdout + proc.stderr
+    if log:
+        build_log(out).write_text(log)
     os.replace(tmp, out)
     return out
+
+
+def build_log(library: Path) -> Path:
+    """Where the compiler's output of a successful build is kept."""
+    return library.with_suffix(".log")
 
 
 def load_library(path: Path, functions: dict) -> ctypes.CDLL:

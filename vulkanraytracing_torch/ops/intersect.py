@@ -44,9 +44,12 @@ class Hit(NamedTuple):
         return self.t >= BIG_T
 
 
-def moller_trumbore(o: Tensor, d: Tensor, v0: Tensor, e1: Tensor, e2: Tensor):
+def moller_trumbore(o: Tensor, d: Tensor, v0: Tensor, e1: Tensor, e2: Tensor,
+                    det_eps: float = DET_EPS):
     """Raw Moller-Trumbore over broadcastable (..., 3) inputs.  Returns
-    (t, u, v, det); the caller applies windows, culling and validity."""
+    (t, u, v, det); the caller applies windows, culling and validity.
+    ``det_eps`` guards the reciprocal of det (the packet kernels use
+    1e-30)."""
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
@@ -55,7 +58,7 @@ def moller_trumbore(o: Tensor, d: Tensor, v0: Tensor, e1: Tensor, e2: Tensor):
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
     det = e1x * pvx + e1y * pvy + e1z * pvz
-    inv_det = 1.0 / torch.where(det.abs() < DET_EPS, 1.0, det)
+    inv_det = 1.0 / torch.where(det.abs() < det_eps, 1.0, det)
     tvx = ox - v0[..., 0]
     tvy = oy - v0[..., 1]
     tvz = oz - v0[..., 2]

@@ -1,13 +1,23 @@
-"""Trace dispatch: brute force or a BVH traversal kernel.
+"""Trace dispatch: the traversal-backend switch.
 
-Counterpart of ``vulkanraytracing_tpu/ops/trace.py`` for opaque scenes.
-``TraversalMode.BVH_KERNEL`` picks the kernel by the BVH's shape, as the
-JAX package's ``BVH_PALLAS`` does: the 8-wide kernel
-(``ops.traverse_wide8``) when the BVH carries its 8-wide collapse, the
-2-wide kernel (``ops.traverse_wide``) otherwise, which is every LBVH build
-and TLAS refit.  Alpha-tested geometry, wavefront reordering and the other
-traversal backends are not ported yet; scenes that need them are refused
-where they are built (``scene.types.check_supported``).
+Counterpart of ``vulkanraytracing_tpu/ops/trace.py`` for opaque scenes:
+interchangeable implementations of one trace, the analogue of the
+reference's compile-time ``PathTracingMode`` backend switch.
+
+- ``BRUTE_FORCE``: the O(R*T) oracle (``ops.intersect``); a scene with no
+  BVH is traced this way in every mode, as in the JAX package;
+- ``BVH``: packet traversal in plain torch (``ops.traverse_packet``);
+- ``BVH_KERNEL``: the 8-wide kernel (``ops.traverse_wide8``) when the BVH
+  carries its 8-wide collapse, the 2-wide kernel (``ops.traverse_wide``)
+  otherwise, which is every LBVH build and TLAS refit, as the JAX
+  package's ``BVH_PALLAS`` does;
+- ``BVH_SUBPACKET``: the subpacket kernel (``ops.traverse_subpacket``);
+- ``BVH_SHARED``: the shared-cursor kernel (``ops.traverse_pallas``).
+
+The packet backends read the BVH's 2-wide arrays, which an 8-wide collapse
+keeps, so they run on SAH and LBVH trees alike.  Alpha-tested geometry
+and wavefront reordering are not ported yet; scenes that need them are
+refused where they are built (``scene.types.check_supported``).
 """
 
 from __future__ import annotations
@@ -15,19 +25,31 @@ from __future__ import annotations
 from torch import Tensor
 
 from vulkanraytracing_torch.config import Config, TraversalMode
-from vulkanraytracing_torch.ops import intersect, traverse_wide, traverse_wide8
+from vulkanraytracing_torch.ops import (
+    intersect,
+    traverse_packet,
+    traverse_pallas,
+    traverse_subpacket,
+    traverse_wide,
+    traverse_wide8,
+)
 from vulkanraytracing_torch.ops.intersect import Hit
-from vulkanraytracing_torch.scene.types import Scene
+from vulkanraytracing_torch.scene.types import BVH, Scene
 
 
-def _traversal(scene: Scene):
-    """(bvh, traversal module) for the scene's BVH."""
-    if scene.bvh is None:
-        raise ValueError(
-            "TraversalMode.BVH_KERNEL needs a BVH: build one with "
-            "accel.lbvh.build_scene_bvh, or use TraversalMode.BRUTE_FORCE"
-        )
-    return scene.bvh, traverse_wide8 if scene.bvh.nodes8 is not None else traverse_wide
+def _backend(mode: TraversalMode, bvh: BVH):
+    """(intersect_closest, intersect_any) of the mode's backend."""
+    if mode == TraversalMode.BVH:
+        return traverse_packet.intersect_closest_packet, traverse_packet.intersect_any_packet
+    if mode == TraversalMode.BVH_KERNEL:
+        module = traverse_wide8 if bvh.nodes8 is not None else traverse_wide
+    elif mode == TraversalMode.BVH_SUBPACKET:
+        module = traverse_subpacket
+    elif mode == TraversalMode.BVH_SHARED:
+        module = traverse_pallas
+    else:
+        raise ValueError(f"unknown traversal mode {mode}")
+    return module.intersect_closest, module.intersect_any
 
 
 def trace_closest(
@@ -35,12 +57,12 @@ def trace_closest(
     t_max: Tensor, cull_backface: bool = True,
 ) -> Hit:
     """Closest hit of each ray against the scene."""
-    if cfg.traversal == TraversalMode.BRUTE_FORCE:
+    if cfg.traversal == TraversalMode.BRUTE_FORCE or scene.bvh is None:
         return intersect.intersect_closest_brute(
             scene.geometry, o, d, t_min, t_max, cull_backface=cull_backface
         )
-    bvh, kernel = _traversal(scene)
-    return kernel.intersect_closest(bvh, o, d, t_min, t_max, cull_backface=cull_backface)
+    closest, _ = _backend(cfg.traversal, scene.bvh)
+    return closest(scene.bvh, o, d, t_min, t_max, cull_backface=cull_backface)
 
 
 def trace_any(
@@ -48,7 +70,7 @@ def trace_any(
     t_max: Tensor,
 ) -> Tensor:
     """Visibility query: is [t_min, t_max] of each ray blocked?"""
-    if cfg.traversal == TraversalMode.BRUTE_FORCE:
+    if cfg.traversal == TraversalMode.BRUTE_FORCE or scene.bvh is None:
         return intersect.intersect_any_brute(scene.geometry, o, d, t_min, t_max)
-    bvh, kernel = _traversal(scene)
-    return kernel.intersect_any(bvh, o, d, t_min, t_max)
+    _, blocked = _backend(cfg.traversal, scene.bvh)
+    return blocked(scene.bvh, o, d, t_min, t_max)

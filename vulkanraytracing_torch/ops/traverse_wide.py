@@ -69,15 +69,21 @@ class Table2(NamedTuple):
         return Table2(*[t.to(device) for t in self])
 
 
+def stack_need(bvh: BVH) -> int:
+    """The tree's worst-case stack need in any 2-wide traversal of the
+    port (the deepest chain of internal nodes): from the build's topology
+    when the BVH has one (kept across refits), else from the child array
+    on the host."""
+    if bvh.topology is not None:
+        return bvh.topology.stack_need
+    return worst_case_stack(bvh.child_index.cpu().numpy())
+
+
 def build_table2(bvh: BVH) -> Table2:
     """The kernel's table over the BVH's own arrays.  Raises when the
     tree's worst-case stack need exceeds ``STACK_DEPTH``: the kernel has no
-    overflow path.  The need comes from the build's topology when the BVH
-    has one (kept across refits), else from the child array on the host."""
-    if bvh.topology is not None:
-        need = bvh.topology.stack_need
-    else:
-        need = worst_case_stack(bvh.child_index.cpu().numpy())
+    overflow path."""
+    need = stack_need(bvh)
     if need > STACK_DEPTH:
         raise ValueError(
             f"BVH2 needs a traversal stack of {need} > {STACK_DEPTH} entries"
@@ -102,7 +108,7 @@ def get_table2(bvh: BVH) -> Table2:
 
 
 def _traverse_plain(table: Table2, o, d, t_min, t_max, any_hit: bool,
-                    cull_backface: bool):
+                    cull_backface: bool, counts: dict | None = None):
     def node_step(node, oi, qi, tmin_i, best_i):
         dist = child_distances(table.nodes[node].view(-1, 2, 6), oi, qi, tmin_i, best_i)
         kids = table.child[node].long()
@@ -116,18 +122,23 @@ def _traverse_plain(table: Table2, o, d, t_min, t_max, any_hit: bool,
         rec = table.tri[s]
         return rec[:, 0:3], rec[:, 3:6], rec[:, 6:9], table.tri_flags[s], s.to(torch.int32)
 
-    return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface)
+    return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface,
+                    counts, boxes=2)
 
 
-def closest_plain(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
+def closest_plain(table: Table2, o, d, t_min, t_max, cull_backface=True,
+                  counts: dict | None = None) -> Hit:
+    """The plain version; ``counts`` gathers its work
+    (``traverse_wide8.lockstep``)."""
     t, u, v, tri, bf, _ = _traverse_plain(
-        table, *_canon_rays(o, d, t_min, t_max), False, cull_backface
+        table, *_canon_rays(o, d, t_min, t_max), False, cull_backface, counts
     )
     return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
 
 
-def any_plain(table: Table2, o, d, t_min, t_max) -> Tensor:
-    return _traverse_plain(table, *_canon_rays(o, d, t_min, t_max), True, False)[5]
+def any_plain(table: Table2, o, d, t_min, t_max, counts: dict | None = None) -> Tensor:
+    return _traverse_plain(table, *_canon_rays(o, d, t_min, t_max), True, False,
+                           counts)[5]
 
 
 # --- the CUDA kernel -------------------------------------------------------

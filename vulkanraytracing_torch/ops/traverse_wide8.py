@@ -130,7 +130,7 @@ def child_distances(box: Tensor, o: Tensor, inv: Tensor, t_min: Tensor,
 
 
 def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
-             cull_backface: bool):
+             cull_backface: bool, counts: dict | None = None, boxes: int = 8):
     """Lockstep traversal: every live ray makes one node or leaf visit per
     step, exactly as one thread of a traversal kernel does.
 
@@ -139,7 +139,12 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
     (R, W) entries pushed in column order where ``push`` is set, and
     whether any child was hit.  ``leaf_fetch(slot)`` returns (v0, e1, e2,
     flags, tid) of triangle records.  Returns (t, u, v, tri, backface,
-    hit) tensors over the rays."""
+    hit) tensors over the rays.
+
+    With ``counts`` (a dict), the work the kernel does for these rays is
+    added to it: "box_tests" (``boxes`` slab tests per node visit) and
+    "tri_tests" (candidate triangles tested, up to an any-hit query's
+    first occluder)."""
     r, dev = o.shape[0], o.device
     inv = _safe_inv(d)
     best = torch.clamp_max(t_max, BIG_T)
@@ -152,6 +157,8 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
     stack = torch.zeros((r, STACK_DEPTH), dtype=torch.int64, device=dev)
     active = t_min <= t_max
+    n_box = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tri = torch.zeros_like(n_box)
 
     while True:
         ids = torch.nonzero(active).squeeze(1)
@@ -163,6 +170,7 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
 
         ii = ids[inner]
         if ii.numel():
+            n_box += ii.numel() * boxes
             first, push_list, push, descend = node_step(
                 c[inner], o[ii], inv[ii], t_min[ii], best[ii])
             pos = sp[ii, None] + torch.cumsum(push.long(), dim=1) - 1
@@ -183,6 +191,8 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
                 m = j < count
                 s = torch.where(m, start + j, 0)
                 v0, e1, e2, flags, tid = leaf_fetch(s)
+                tested = m & ((flags & 6) != 0)
+                n_tri += (tested & ~hit_l).sum() if any_hit else tested.sum()
                 t, tu, tv, det = moller_trumbore(ol, dl, v0, e1, e2)
                 valid = (
                     m & ((flags & 6) != 0) & (det.abs() > DET_EPS)
@@ -215,12 +225,15 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
         cur[pc] = stack[pc, sp[pc]]
         active[pi[~can]] = False
 
+    if counts is not None:
+        counts["box_tests"] = counts.get("box_tests", 0) + int(n_box)
+        counts["tri_tests"] = counts.get("tri_tests", 0) + int(n_tri)
     t = torch.where(hit, best, BIG_T)
     return t, u, v, tri, bf & hit, hit
 
 
 def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
-                    cull_backface: bool):
+                    cull_backface: bool, counts: dict | None = None):
     slot = torch.arange(8, device=o.device)
 
     def node_step(node, oi, qi, tmin_i, best_i):
@@ -244,18 +257,22 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
         rec, meta = table.tri[s], table.tri_meta[s]
         return rec[:, 0:3], rec[:, 4:7], rec[:, 8:11], meta[:, 0], meta[:, 1]
 
-    return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface)
+    return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface,
+                    counts, boxes=8)
 
 
-def closest_plain(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
+def closest_plain(table: Table8, o, d, t_min, t_max, cull_backface=True,
+                  counts: dict | None = None) -> Hit:
+    """The plain version; ``counts`` gathers its work (``lockstep``)."""
     t, u, v, tri, bf, _ = _traverse_plain(
-        table, *_canon_rays(o, d, t_min, t_max), False, cull_backface
+        table, *_canon_rays(o, d, t_min, t_max), False, cull_backface, counts
     )
     return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
 
 
-def any_plain(table: Table8, o, d, t_min, t_max) -> Tensor:
-    return _traverse_plain(table, *_canon_rays(o, d, t_min, t_max), True, False)[5]
+def any_plain(table: Table8, o, d, t_min, t_max, counts: dict | None = None) -> Tensor:
+    return _traverse_plain(table, *_canon_rays(o, d, t_min, t_max), True, False,
+                           counts)[5]
 
 
 # --- the CUDA kernel -------------------------------------------------------

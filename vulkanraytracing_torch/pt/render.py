@@ -26,7 +26,7 @@ TILE = 16  # pixels per tile side
 _M32 = 0xFFFFFFFF
 
 
-def tile_pixel_coords(width: int, rows: int, device="cpu"):
+def tile_pixel_coords(width: int, rows: int, device="cuda"):
     """Pixel coordinates in 16x16-tile order, covering rows [0, rows)
     padded up to whole tiles.  Returns (px, py, valid, tiles_y, tiles_x);
     px and py are int64."""
@@ -55,7 +55,7 @@ class RenderState(NamedTuple):
     accum_index: int      # frames accumulated so far (uint32, wraps)
 
 
-def create_render_state(cfg: Config, device="cpu") -> RenderState:
+def create_render_state(cfg: Config, device="cuda") -> RenderState:
     return RenderState(
         accumulation=torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                                  device=device),

@@ -83,7 +83,7 @@ class Camera:
         p[1, 1] = -p[1, 1]
         return p
 
-    def to_device(self, device="cpu", reverse_depth: bool = True) -> CameraPT:
+    def to_device(self, device="cuda", reverse_depth: bool = True) -> CameraPT:
         d = self.description
 
         def f32(m):

@@ -6,7 +6,8 @@ objects whose leaves
 are numpy arrays (for example the JAX package's ``Scene`` after
 ``jax.tree.map(np.asarray, scene)``) and return the port's objects on
 ``device``.  Nothing here imports JAX: any object with the same field
-names works, so both packages can trace the very same BVH.
+names works, so both packages can trace the very same BVH.  ``device``
+defaults to the card.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _fields(cls, obj, device):
     return cls(**{name: _tensor(getattr(obj, name), device) for name in cls._fields})
 
 
-def scene_from_numpy(obj, device="cpu") -> Scene:
+def scene_from_numpy(obj, device="cuda") -> Scene:
     """Port ``Scene`` from a numpy-leaved scene with the JAX field names."""
     if getattr(obj, "textures", None) is not None or getattr(obj, "alpha", None) is not None:
         raise NotImplementedError("textured or alpha-tested scenes are not ported yet")
@@ -62,7 +63,7 @@ def scene_from_numpy(obj, device="cpu") -> Scene:
     )
 
 
-def soup_from_numpy(obj, device="cpu"):
+def soup_from_numpy(obj, device="cuda"):
     """Port ``accel.tlas.InstanceSoup`` from a numpy-leaved soup with the
     JAX field names."""
     from vulkanraytracing_torch.accel.tlas import InstanceSoup
@@ -73,7 +74,7 @@ def soup_from_numpy(obj, device="cpu"):
     )
 
 
-def camera_from_numpy(obj, device="cpu") -> CameraPT:
+def camera_from_numpy(obj, device="cuda") -> CameraPT:
     """Port ``CameraPT`` from a numpy-leaved camera with the JAX field names."""
     return CameraPT(
         inverse_view=_tensor(obj.inverse_view, device),

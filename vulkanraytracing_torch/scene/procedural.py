@@ -4,7 +4,9 @@ Counterpart of ``vulkanraytracing_tpu/scene/procedural.py``.  Every scene
 is assembled on the host with numpy's ``default_rng(seed)`` in the same
 call order as the JAX package, so the arrays match it bit for bit, and is
 then moved to ``device`` once (``animated_instances_demo`` also returns
-an instance soup and its animation).  Only the factor-only workloads are ported:
+an instance soup and its animation).  ``device`` defaults to the card, as
+every entry point of the port does: a CPU scene is asked for with
+``device="cpu"``.  Only the factor-only workloads are ported:
 ``sponza_like_scene(workload="real")`` needs textures and alpha-tested
 foliage, which the port does not have yet.
 """
@@ -67,7 +69,7 @@ def _f32(rows, device) -> torch.Tensor:
 
 
 def cornell_box_scene(
-    light_intensity: float = 20.0, with_point_lights: bool = True, device="cpu"
+    light_intensity: float = 20.0, with_point_lights: bool = True, device="cuda"
 ) -> Scene:
     """Cornell box sized [-1, 1]^3, open on +Z: white walls, red left, green
     right, an emissive ceiling panel, a metal and a blue diffuse sphere."""
@@ -92,7 +94,7 @@ def cornell_box_scene(
     parts.append((sv + np.array([-0.45, -0.7, 0.2], np.float32), si, 5))
 
     geometry = concat_geometry([
-        make_trace_geometry(v, i, material_id=m, cull_disable=True)
+        make_trace_geometry(v, i, material_id=m, cull_disable=True, device="cpu")
         for v, i, m in parts
     ]).to(device)
     li = light_intensity
@@ -131,7 +133,7 @@ def cornell_box_scene(
 
 def triangle_soup_scene(
     num_triangles: int, seed: int = 0, extent: float = 10.0,
-    tri_size: float = 0.25, device="cpu",
+    tri_size: float = 0.25, device="cuda",
 ) -> Scene:
     """Random triangle soup — BVH stress geometry."""
     rng = np.random.default_rng(seed)
@@ -154,7 +156,7 @@ def triangle_soup_scene(
 
 
 def sponza_like_scene(target_triangles: int = 262144, seed: int = 7,
-                      workload: str = "v1", device="cpu") -> Scene:
+                      workload: str = "v1", device="cuda") -> Scene:
     """Sponza-scale colonnaded hall (the bench's v1 workload): floor, walls
     and ceiling, two rows of column spheroids, and clutter spheres up to
     the triangle budget; factor-only materials, a sun and 4 point lights."""
@@ -169,7 +171,8 @@ def sponza_like_scene(target_triangles: int = 262144, seed: int = 7,
 
     def add_quad(p0, p1, p2, p3, mat):
         v, i = _quad(p0, p1, p2, p3)
-        parts.append(make_trace_geometry(v, i, material_id=mat, cull_disable=True))
+        parts.append(make_trace_geometry(v, i, material_id=mat, cull_disable=True,
+                                         device="cpu"))
 
     add_quad([-hall[0], 0, -hall[2]], [-hall[0], 0, hall[2]],
              [hall[0], 0, hall[2]], [hall[0], 0, -hall[2]], 0)      # floor
@@ -192,7 +195,7 @@ def sponza_like_scene(target_triangles: int = 262144, seed: int = 7,
         sv, si = generate_sphere(0.8, lat=lat, lon=lon)
         sv = sv * np.array([1.0, 5.0, 1.0], np.float32)
         sv = sv + np.array([x, 4.0, z], np.float32)
-        parts.append(make_trace_geometry(sv, si, material_id=2))
+        parts.append(make_trace_geometry(sv, si, material_id=2, device="cpu"))
 
     used = sum(g.num_triangles for g in parts)
     remaining = max(target_triangles - used, 0)
@@ -205,8 +208,8 @@ def sponza_like_scene(target_triangles: int = 262144, seed: int = 7,
             [rng.uniform(-hall[0], hall[0]), rng.uniform(0.2, hall[1] - 0.5),
              rng.uniform(-hall[2], hall[2])], np.float32,
         )
-        parts.append(make_trace_geometry(sv + pos, si,
-                                         material_id=int(rng.integers(0, 5))))
+        parts.append(make_trace_geometry(sv + pos, si, material_id=int(rng.integers(0, 5)),
+                                         device="cpu"))
 
     materials = make_materials(
         base_color_factors=[
@@ -238,7 +241,7 @@ def sponza_like_scene(target_triangles: int = 262144, seed: int = 7,
     )
 
 
-def animated_instances_demo(orbiters: int = 4, device="cpu"):
+def animated_instances_demo(orbiters: int = 4, device="cuda"):
     """Two-level animated scene: a static ground quad BLAS and one sphere
     BLAS instanced ``orbiters`` times, which the animation callback orbits
     around the y axis.  Returns (scene_template, soup, animation) for

@@ -4,6 +4,8 @@ Counterpart of ``vulkanraytracing_tpu/scene/types.py``: flat world-space
 triangle soup indexed by a global triangle id, SOA materials, point
 lights with colour pre-multiplied by intensity, and the BVH arrays.  Every
 container has ``to(device)``; nothing here holds global device state.
+The constructors put their tensors on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -190,7 +192,7 @@ def make_trace_geometry(
     cull_disable: np.ndarray | bool = False,
     opaque: np.ndarray | bool = True,
     alpha_test: np.ndarray | bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> TraceGeometry:
     """Assemble SOA trace geometry from indexed vertex data (numpy on the
     host, then tensors on ``device``).  Generates flat normals, arbitrary
@@ -270,7 +272,7 @@ def make_materials(
     normal_textures=None,
     emission_textures=None,
     occlusion_textures=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Materials:
     base = np.asarray(base_color_factors, np.float32).reshape(-1, 4)
     m = base.shape[0]
@@ -309,16 +311,16 @@ def make_materials(
     )
 
 
-def constant_environment(color, size: int = 8, device="cpu") -> Environment:
+def constant_environment(color, size: int = 8, device="cuda") -> Environment:
     pano = np.broadcast_to(np.asarray(color, np.float32), (size, size * 2, 3))
     return Environment(panorama=torch.from_numpy(pano.copy()).to(device))
 
 
-def black_environment(size: int = 8, device="cpu") -> Environment:
+def black_environment(size: int = 8, device="cuda") -> Environment:
     return constant_environment((0.0, 0.0, 0.0), size, device)
 
 
-def no_direct_light(device="cpu") -> DirectLight:
+def no_direct_light(device="cuda") -> DirectLight:
     return DirectLight(
         direction=torch.tensor([0.0, -1.0, 0.0, 0.0], device=device),
         color=torch.zeros((4,), device=device),
