@@ -8,20 +8,26 @@ Run from the repository root.  Phases, each printing its result:
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the four traversal kernels (BVH8, BVH2, subpacket and shared
    cursor; nvcc, sm_90a) and the native BVH builders, from the sources in
-   the checkout, all at once; ptxas's registers, stack and spills of each
-   kernel specialization;
+   the checkout, all at once; ptxas's registers, stack, spills and shared
+   memory of each kernel specialization, and the widths of the per-ray
+   kernels' loads as the machine code has them;
 3. kernel against plain version: a 20,000-triangle soup and the v1 hall,
    65,536 camera and random rays each (some with t_max = 0), closest hit
    with culling on and off and any-hit; then the same comparison at the
    shapes the 1080p frame gives the kernels (its primary rays, and its
-   point-light plus sun shadow rays);
+   point-light plus sun shadow rays); every field bit for bit, each kernel
+   run twice (as in phase 6);
 4. the slice: a 64x64 Cornell box, 4 frames, BVH8 kernel against brute
    force;
 5. the main path: the v1 scene (262,144-triangle target), SAH build and
    BVH8 collapse, then 3 frames of ``render_frame`` at 1920x1080 with 4
    bounces, with per-frame time, rays, Mrays/s and kernel launch counts;
    then one more frame under ``torch.profiler``: the device's busy time,
-   its idle share of the frame's wall time and the costliest kernels;
+   its idle share of the frame's wall time and the costliest kernels; then
+   one more frame with the arguments of every traversal launch recorded,
+   and each recorded launch replayed alone: kernel ms, live rays, the plain
+   version's box and triangle tests for these rays, the bound they give,
+   kernel = plain version in every field;
 6. BVH2 kernel against plain version: the 20,000-triangle soup as an LBVH
    with no collapse (camera and random rays as in phase 3), then the
    dynamic frame's shapes (its primary rays with culling on and off, its
@@ -34,7 +40,8 @@ Run from the repository root.  Phases, each printing its result:
    inside the frame), frame ms, rays, Mrays/s and the launches of all
    four kernel specializations, one static frame that accumulates, the
    refitted image against a frame over a from-scratch LBVH build
-   (bit-equal), the peak device memory and one profiled moving frame;
+   (bit-equal), the peak device memory, one profiled moving frame and one
+   recorded moving frame replayed launch by launch as in phase 5;
 8. the packet kernels (subpacket, shared cursor) on the 2-wide arrays of
    the trees: against their plain versions on the 20,000-triangle soup as
    an LBVH and as an SAH tree (camera and random rays as in phase 3), then
@@ -58,7 +65,12 @@ operations are the slab and triangle tests that the per-ray plain version
 of the same tree makes for the same rays (its ``counts``; the three 2-wide
 kernels are held to the BVH2 one's), times the operations of one test
 counted from the code (``BOX_OPS``, ``TRI_OPS``).  No single PyTorch call
-traverses a BVH, so ``library_ms`` is null.
+traverses a BVH, so ``library_ms`` is null.  ``ms`` and ``bound_ms`` are
+taken on the frame's primary rays and bounce-0 shadow rays; the four
+per-ray entries also carry ``frame_ms``, ``frame_bound_ms`` and
+``frame_launches``: the kernel's time and bound summed over the replayed
+launches of one whole frame, whose later bounces are incoherent and full
+of dead rays.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -75,7 +87,9 @@ import argparse
 import collections
 import json
 import math
+import operator
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -95,11 +109,10 @@ SOURCES = {
 }
 ORBITERS = 64
 BENCH_CAMERA = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0))
-# kernel against plain version: hit flags, triangle ids, back-face flags
-# and any-hit verdicts must be equal; t, u, v are expected bit-equal (both
-# round every operation: the kernel is built with -fmad=false) and held
-# to rtol 1e-6
-RTOL = 1e-6
+# kernel against plain version: the tolerance is none.  Every field of
+# every comparison must be equal bit for bit (both round every operation:
+# the kernels are built with -fmad=false), and a second kernel run must
+# equal the first
 # the bound: H100 SXM peaks (NVIDIA's data sheet, at 700 W), and the
 # operations of one slab test and one triangle test, counted from the code
 # (csrc/traverse_common.cuh and csrc/packet_common.cuh, the same
@@ -149,9 +162,10 @@ def replaces(source: str) -> str:
 
 
 def ptxas_report(lib) -> list[str]:
-    """Registers, stack frame and spills of each kernel specialization
-    (its template flags as in the source) in a library built by
-    ``native.build_library`` (ptxas -v, kept beside it)."""
+    """Registers, stack frame, spills and static shared memory of each
+    kernel specialization (its template flags as in the source: any-hit,
+    culling) in a library built by ``native.build_library`` (ptxas -v, kept
+    beside it)."""
     from vulkanraytracing_torch import native
 
     log = native.build_log(Path(lib._name)).read_text()
@@ -160,8 +174,7 @@ def ptxas_report(lib) -> list[str]:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            kernel = re.search(r"(?:closest2?|any2?|shared|subpacket)_kernel",
-                               mangled).group(0)
+            kernel = re.search(r"(?:traverse|shared|subpacket)_kernel", mangled).group(0)
             flags = re.findall(r"Lb([01])E", mangled[mangled.index(kernel):])
             name = kernel + (f"<{','.join(flags)}>" if flags else "")
         spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -170,16 +183,50 @@ def ptxas_report(lib) -> list[str]:
             stack, st, ld = spills.groups()
         regs = re.search(r"Used (\d+) registers", line)
         if regs and name:
+            smem = re.search(r"(\d+) bytes smem", line)
             rows.append(f"{name}: {regs.group(1)} registers, {stack} B stack, "
-                        f"spills {st} B stored / {ld} B loaded")
+                        f"spills {st} B stored / {ld} B loaded, "
+                        f"{smem.group(1) if smem else 0} B shared")
             name = None
+    return rows
+
+
+def sass_loads(lib) -> list[str]:
+    """The global loads of each kernel in a library, by width, and its
+    local and shared loads and stores, counted in the machine code
+    (``cuobjdump -sass``): the per-ray kernels should read their tables
+    with 16-byte loads (8 bytes where only half a group is used) and only
+    the ray itself with 4-byte ones.  Empty where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return []
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    rows, counts = [], None
+    for line in sass.splitlines() + ["Function : end"]:
+        function = re.search(r"Function : (\S+)", line)
+        if function:
+            if counts:
+                rows.append(f"{name}: global loads " + ", ".join(
+                    f"{n} x {w} B" for w, n in sorted(counts["LDG"].items()))
+                    + f"; local {counts['LDL'][0]} loads / {counts['STL'][0]} stores; "
+                    f"shared {counts['LDS'][0]} / {counts['STS'][0]}")
+            flags = re.findall(r"Lb([01])E", function.group(1))
+            name = "traverse_kernel" + (f"<{','.join(flags)}>" if flags else "")
+            counts = collections.defaultdict(collections.Counter)
+        op = re.search(r"\b(LDG|LDL|STL|LDS|STS)((?:\.\w+)*)", line)
+        if op and counts is not None:
+            width = 16 if ".128" in op.group(2) else 8 if ".64" in op.group(2) else 4
+            counts[op.group(1)][width if op.group(1) == "LDG" else 0] += 1
     return rows
 
 
 def bound(kind: str, n_rays: int, table, counts: dict) -> tuple[float, str]:
     """The least time the card could take for a traversal call: (ms, what
-    bounds it), from the bytes it must move and the tests the per-ray plain
-    version counted for the same rays."""
+    bounds it), from the bytes it must move (the rays, the results and
+    ``table``, the tensors of the table that the kernel reads) and the
+    tests the per-ray plain version counted for the same rays."""
     n_bytes = (n_rays * (RAY_IN_BYTES + RAY_OUT_BYTES[kind])
                + sum(t.numel() * t.element_size() for t in table))
     ops = counts["box_tests"] * BOX_OPS + counts["tri_tests"] * TRI_OPS
@@ -222,37 +269,29 @@ def timed(fn):
 
 
 def compare(tw, table, o, d, t_min, t_max, label, culls=(True, False),
-            any_hit=True, reps=20, exact=False):
+            any_hit=True, reps=20):
     """Kernel against plain version of the traversal module ``tw``
     (``ops.traverse_wide8``, ``ops.traverse_wide``, ``ops.traverse_subpacket``
     or ``ops.traverse_pallas``) for closest hit (with each culling setting
-    in ``culls``) and any-hit.  With ``exact`` every field must be equal and
-    a second kernel run must equal the first.  Returns {"closest" (culling
-    on) / "any": (max_abs_err, kernel_ms, plain_ms)}; the plain version
-    runs once and that run is timed."""
+    in ``culls``) and any-hit: every field must be equal, and a second
+    kernel run must equal the first.  Returns {"closest" (culling on) /
+    "any": (max_abs_err, kernel_ms, plain_ms)}; the plain version runs once
+    and that run is timed."""
     out = {}
     for cull in culls:
         k = tw.closest_cuda(table, o, d, t_min, t_max, cull)
         p, p_ms = timed(lambda: tw.closest_plain(table, o, d, t_min, t_max, cull))
+        again = tw.closest_cuda(table, o, d, t_min, t_max, cull)
         hit = p.is_hit
-        check(torch.equal(k.is_hit, hit), f"{label} closest cull={cull}: is_hit")
-        check(torch.equal(k.tri[hit], p.tri[hit]), f"{label} cull={cull}: tri")
-        check(torch.equal(k.backface, p.backface), f"{label} cull={cull}: backface")
         err = 0.0
-        for name in ("t", "u", "v"):
-            a, b = getattr(k, name)[hit], getattr(p, name)[hit]
-            check(torch.allclose(a, b, rtol=RTOL, atol=0.0),
-                  f"{label} cull={cull}: {name} within rtol {RTOL}")
-            if a.numel():
-                err = max(err, float((a - b).abs().max()))
-        if exact:
-            again = tw.closest_cuda(table, o, d, t_min, t_max, cull)
-            for name, a, b, c in zip(p._fields, k, p, again):
-                check(torch.equal(a, b), f"{label} cull={cull}: {name} bit-equal")
-                check(torch.equal(a, c), f"{label} cull={cull}: {name} alike twice")
+        for name, a, b, c in zip(p._fields, k, p, again):
+            check(torch.equal(a, b), f"{label} cull={cull}: {name} bit-equal")
+            check(torch.equal(a, c), f"{label} cull={cull}: {name} alike twice")
+            if name in ("t", "u", "v") and bool(hit.any()):
+                err = max(err, float((a[hit] - b[hit]).abs().max()))
         k_ms = cuda_ms(lambda: tw.closest_cuda(table, o, d, t_min, t_max, cull), reps)
         print(f"  {label} closest cull={cull}: {int(hit.sum())}/{hit.numel()} hits, "
-              f"equal (max |t,u,v diff| {err:.3g}{', every field, twice' if exact else ''}); "
+              f"equal in every field, twice (max |t,u,v diff| {err:.3g}); "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
         if cull:
             out["closest"] = (err, k_ms, p_ms)
@@ -261,13 +300,11 @@ def compare(tw, table, o, d, t_min, t_max, label, culls=(True, False),
     k = tw.any_cuda(table, o, d, t_min, t_max)
     p, p_ms = timed(lambda: tw.any_plain(table, o, d, t_min, t_max))
     check(torch.equal(k, p), f"{label} any-hit verdicts")
-    if exact:
-        check(torch.equal(k, tw.any_cuda(table, o, d, t_min, t_max)),
-              f"{label} any-hit verdicts alike twice")
+    check(torch.equal(k, tw.any_cuda(table, o, d, t_min, t_max)),
+          f"{label} any-hit verdicts alike twice")
     k_ms = cuda_ms(lambda: tw.any_cuda(table, o, d, t_min, t_max), reps)
-    print(f"  {label} any-hit: {int(k.sum())}/{k.numel()} occluded, equal"
-          f"{', twice' if exact else ''}; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms",
-          flush=True)
+    print(f"  {label} any-hit: {int(k.sum())}/{k.numel()} occluded, equal, twice; "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
     out["any"] = (0.0, k_ms, p_ms)
     return out
 
@@ -299,6 +336,78 @@ def frame_gate(name, img, rays, ref_img, ref_rays) -> None:
     check(abs(rays - ref_rays) <= FRAME_RAY_TOL * ref_rays,
           f"{name} ray count within {FRAME_RAY_TOL}")
     check(share <= FRAME_PIXEL_SHARE, f"{name} pixels within {FRAME_PIXEL_SHARE}")
+
+
+def record_frame(render):
+    """Run ``render()`` (one frame) and record the arguments of every
+    traversal launch it makes, in order: ``ops.trace.trace_closest`` and
+    ``trace_any`` are wrapped for this frame only.  Returns the frame's
+    launches as (kind, the BVH traced, clones of o, d, t_min, t_max, the
+    culling flag)."""
+    from vulkanraytracing_torch.ops import trace
+
+    calls = []
+    closest, blocked = trace.trace_closest, trace.trace_any
+
+    def record_closest(scene, cfg, o, d, t_min, t_max, cull_backface=True):
+        calls.append(("closest", scene.bvh,
+                      tuple(x.clone() for x in (o, d, t_min, t_max)), cull_backface))
+        return closest(scene, cfg, o, d, t_min, t_max, cull_backface=cull_backface)
+
+    def record_any(scene, cfg, o, d, t_min, t_max):
+        calls.append(("any", scene.bvh,
+                      tuple(x.clone() for x in (o, d, t_min, t_max)), False))
+        return blocked(scene, cfg, o, d, t_min, t_max)
+
+    trace.trace_closest, trace.trace_any = record_closest, record_any
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        trace.trace_closest, trace.trace_any = closest, blocked
+    return calls
+
+
+def replay(tw, get_table, table_tensors, calls, label) -> dict:
+    """Each recorded launch of a frame (``record_frame``) alone, through
+    the per-ray traversal module ``tw`` over ``get_table(bvh)``: the
+    kernel's ms (CUDA events, mean of 5), the live rays (t_min <= t_max),
+    the box and triangle tests the plain version makes for these rays, the
+    bound they give (``table_tensors(table)``: the tensors the kernel
+    reads), and the kernel held to the plain version in every field.  Prints one line per launch
+    and returns {"closest" / "any": (summed kernel ms, summed bound ms,
+    launches)}."""
+    totals = {"closest": [0.0, 0.0, 0], "any": [0.0, 0.0, 0]}
+    t0 = time.perf_counter()
+    for i, (kind, bvh, rays, cull) in enumerate(calls):
+        table = get_table(bvh)
+        counts = {}
+        if kind == "closest":
+            k = tw.closest_cuda(table, *rays, cull)
+            p = tw.closest_plain(table, *rays, cull, counts=counts)
+            equal = all(torch.equal(a, b) for a, b in zip(k, p))
+            ms = cuda_ms(lambda: tw.closest_cuda(table, *rays, cull), 5)
+        else:
+            k = tw.any_cuda(table, *rays)
+            p = tw.any_plain(table, *rays, counts=counts)
+            equal = torch.equal(k, p)
+            ms = cuda_ms(lambda: tw.any_cuda(table, *rays), 5)
+        check(equal, f"{label} launch {i} ({kind}): kernel equals plain version")
+        n = rays[0].shape[0]
+        live = int((rays[2] <= rays[3]).sum())
+        bound_ms, by = bound(kind, n, table_tensors(table), counts)
+        print(f"{label} launch {i} {kind}: {n} rays, {live} live; kernel {ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({by}); {counts['box_tests']} box and "
+              f"{counts['tri_tests']} triangle tests; equal in every field", flush=True)
+        tot = totals[kind]
+        tot[0] += ms
+        tot[1] += bound_ms
+        tot[2] += 1
+    print(f"{label} frame: " + "; ".join(
+        f"{kind} {ms:.3f} ms over {n} launches against a bound of {b:.4f} ms"
+        for kind, (ms, b, n) in totals.items())
+        + f"; replayed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {kind: tuple(v) for kind, v in totals.items()}
 
 
 def launch_counts(kernels) -> dict:
@@ -454,6 +563,9 @@ def main() -> int:
     for name, lib in zip(kernels, libs):
         for row in ptxas_report(lib):
             print(f"[2 build] ptxas {name} {row}", flush=True)
+    for name, lib in list(zip(kernels, libs))[:2]:
+        for row in sass_loads(lib):
+            print(f"[2 build] sass {name} {row}", flush=True)
 
     # -- 3. kernel against plain version ------------------------------
     t0 = time.perf_counter()
@@ -556,6 +668,11 @@ def main() -> int:
         np.save(args.save_dir / "main_frame.npy", img[::4, ::4].cpu().numpy())
     profile_frame(lambda: render_frame(v1, cfg, camera, state),
                   sum(frame_ms) / len(frame_ms), args.save_dir)
+    # one more frame with every traversal launch recorded, then each alone
+    calls = record_frame(lambda: render_frame(v1, cfg, camera, state))
+    in_frame = {f"bvh8_{kind}": v for kind, v in
+                replay(tw, tw.get_table8, tuple, calls, "[5 replay] bvh8").items()}
+    del calls
 
     # -- 6. BVH2 kernel against plain version ---------------------------
     _, soup_bvh = build_bvh(triangle_soup_scene(20000, seed=1, device=device).geometry)
@@ -591,7 +708,8 @@ def main() -> int:
                                  reps=5)["any"]
     work2 = per_ray_work(tw2, table2, closest_rays, shadow_rays)
     for kind, rays in (("closest", closest_rays), ("any", shadow_rays)):
-        bounds[f"bvh2_{kind}"] = bound(kind, rays[0].shape[0], table2, work2[kind])
+        bounds[f"bvh2_{kind}"] = bound(kind, rays[0].shape[0], table2.records,
+                                       work2[kind])
     del closest_rays, shadow_rays
 
     # -- 7. the dynamic path through Engine -------------------------------
@@ -681,6 +799,13 @@ def main() -> int:
         np.save(args.save_dir / "dynamic_frame.npy", moved_img[::4, ::4].cpu().numpy())
     profile_frame(eng.draw, sum(moving_ms) / len(moving_ms), args.save_dir,
                   "dynamic_frame_trace.json")
+    # one more moving frame with every traversal launch recorded, then each
+    # alone over that frame's refitted tree
+    calls = record_frame(eng.draw)
+    in_frame.update({f"bvh2_{kind}": v for kind, v in
+                     replay(tw2, tw2.get_table2, operator.attrgetter("records"), calls,
+                            "[7 replay] bvh2").items()})
+    del calls
 
     # -- 8. the packet kernels ----------------------------------------------
     packet = {"subpacket": TraversalMode.BVH_SUBPACKET, "shared": TraversalMode.BVH_SHARED}
@@ -688,7 +813,7 @@ def main() -> int:
     for tree, bvh in (("LBVH", soup_bvh), ("SAH", soup_sah.bvh)):
         for name in packet:
             compare(kernels[name][0], tw2.get_table2(bvh), *soup_rays,
-                    f"[8 packet] soup20k {tree} {name}", reps=5, exact=True)
+                    f"[8 packet] soup20k {tree} {name}", reps=5)
     table2 = tw2.get_table2(v1.bvh)
     print(f"[8 packet] at the 1080p v1 frame's shapes, over the SAH tree's 2-wide "
           f"arrays ({table2.nodes.shape[0]} nodes, stack need {tw2.stack_need(v1.bvh)} "
@@ -698,12 +823,12 @@ def main() -> int:
     for name in packet:
         module = kernels[name][0]
         result[f"{name}_closest"] = compare(module, table2, *v1_closest, "frame primary " + name,
-                                            culls=(True,), any_hit=False, reps=5,
-                                            exact=True)["closest"]
+                                            culls=(True,), any_hit=False, reps=5)["closest"]
         result[f"{name}_any"] = compare(module, table2, *v1_shadow, "frame shadow " + name,
-                                        culls=(), reps=5, exact=True)["any"]
+                                        culls=(), reps=5)["any"]
         for kind, rays in (("closest", v1_closest), ("any", v1_shadow)):
-            bounds[f"{name}_{kind}"] = bound(kind, rays[0].shape[0], table2, work[kind])
+            bounds[f"{name}_{kind}"] = bound(kind, rays[0].shape[0], table2.arrays,
+                                             work[kind])
 
     ref_img, ref_rays = first_frame
     for name, mode in packet.items():
@@ -763,9 +888,16 @@ def main() -> int:
                       "replaces": replaces(SOURCES[name]), "launches": launches[key],
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        in_frame_txt = ""
+        if key in in_frame:
+            f_ms, f_bound_ms, f_launches = in_frame[key]
+            lines[-1].update(frame_ms=f_ms, frame_bound_ms=f_bound_ms,
+                             frame_launches=f_launches)
+            in_frame_txt = (f"; {f_ms:.3f} ms over the {f_launches} launches of one "
+                            f"replayed frame (bound {f_bound_ms:.4f} ms)")
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
-              f"in the frames of its path", flush=True)
+              f"in the frames of its path{in_frame_txt}", flush=True)
     print(smi)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The traversal kernels on the card against their plain versions (BVH8,
-BVH2, subpacket and shared cursor), the subpacket kernel's persistent
-blocks run twice, the plain packet backend on the card against the CPU,
-and the slice through the BVH8 kernel against brute force.
+BVH2, subpacket and shared cursor), the per-ray kernels' persistent warps
+at odd ray counts and the subpacket kernel's persistent blocks run twice,
+the plain packet backend on the card against the CPU, and the slice
+through the BVH8 kernel against brute force.
 
 Marked ``gpu``: the CUDA kernel has no CPU mode, so these skip where no
 CUDA device is present (the CPU twin in ``test_torch_traverse.py`` covers
@@ -97,6 +98,57 @@ def test_bvh2_any_kernel_matches_plain_and_counts(cuda):
     kernel = tw2.any_cuda(table, *rays)
     assert tw2.LAUNCHES["any2"] == before + 1
     assert torch.equal(kernel, tw2.any_plain(table, *rays))
+
+
+PER_RAY = {"bvh8": (tw, _case, ("closest", "any")), "bvh2": (tw2, _case2, ("closest2", "any2"))}
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 129, 8191])
+@pytest.mark.parametrize("name", sorted(PER_RAY))
+def test_per_ray_kernels_at_odd_ray_counts_twice(cuda, name, n):
+    """The persistent warps take rays from a queue: one batch (n <= 32), a
+    grid with more warps than batches (33, 129), and a count that fills no
+    block evenly.  Every specialization equals its plain version in every
+    field, is alike when run twice (which lane walks which ray changes,
+    the results must not), and counts one launch per call."""
+    module, case, (closest_key, any_key) = PER_RAY[name]
+    table, rays = case(cuda)
+    rays = [x[:n].contiguous() for x in rays]
+    for cull in (True, False):
+        before = module.LAUNCHES[closest_key]
+        first = module.closest_cuda(table, *rays, cull_backface=cull)
+        second = module.closest_cuda(table, *rays, cull_backface=cull)
+        assert module.LAUNCHES[closest_key] == before + 2
+        plain = module.closest_plain(table, *rays, cull_backface=cull)
+        torch.cuda.synchronize()
+        for field, a, b, c in zip(plain._fields, first, second, plain):
+            assert a.shape == (n,) and torch.equal(a, c) and torch.equal(a, b), field
+    before = module.LAUNCHES[any_key]
+    first, second = module.any_cuda(table, *rays), module.any_cuda(table, *rays)
+    assert module.LAUNCHES[any_key] == before + 2
+    assert torch.equal(first, module.any_plain(table, *rays)) and torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", sorted(PER_RAY))
+def test_per_ray_kernels_with_dead_rays(cuda, name):
+    """All rays dead: every result is a miss and the kernel still counts
+    its launch; no rays: no launch, empty results."""
+    module, case, (closest_key, any_key) = PER_RAY[name]
+    table, rays = case(cuda)
+    o, d, t_min, _ = rays
+    dead = torch.full_like(t_min, -1.0)
+    before = module.LAUNCHES[closest_key]
+    hit = module.closest_cuda(table, o, d, t_min, dead)
+    assert module.LAUNCHES[closest_key] == before + 1
+    plain = module.closest_plain(table, o, d, t_min, dead)
+    for field, a, b in zip(plain._fields, hit, plain):
+        assert torch.equal(a, b), field
+    assert not hit.is_hit.any() and not module.any_cuda(table, o, d, t_min, dead).any()
+    before = dict(module.LAUNCHES)
+    none = [x[:0] for x in rays]
+    assert module.closest_cuda(table, *none).t.shape == (0,)
+    assert module.any_cuda(table, *none).shape == (0,)
+    assert dict(module.LAUNCHES) == before
 
 
 PACKET = {"subpacket": tsub, "shared": tpal}

@@ -1,25 +1,20 @@
-// CPU twin of the BVH8 traversal kernel: the same per-ray code
-// (bvh8_traverse.cuh) compiled by g++ and looped over the rays.  Used only
-// by the tests, which hold it against the plain PyTorch traversal so the
-// kernel's own logic (stack, leaf decoding, near-first order) runs where
-// there is no card.
+// CPU twin of the BVH8 traversal kernel: the same per-ray steps
+// (bvh8_traverse.cuh) compiled by g++ and looped over the rays, each ray
+// walked to its end (traverse_common.cuh::walk_ray).  Used only by the
+// tests, which hold it against the plain PyTorch traversal so the kernel's
+// own logic (packed records, sort network, split stack, leaf decoding,
+// near-first order) runs where there is no card.
 #include "bvh8_traverse.cuh"
 
 namespace {
-
-vrt::Ray load_ray(const float* o, const float* d, const float* tmin,
-                  const float* tmax, int i) {
-  return vrt::Ray{o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
-                  d[3 * i + 2], tmin[i], tmax[i]};
-}
 
 template <bool kCull>
 void closest(const vrt::Table8& tab, const float* o, const float* d,
              const float* tmin, const float* tmax, int n, float* out_t,
              float* out_u, float* out_v, int* out_tri, bool* out_bf) {
   for (int i = 0; i < n; ++i) {
-    const vrt::HitRecord h =
-        vrt::traverse<false, kCull>(tab, load_ray(o, d, tmin, tmax, i));
+    const vrt::HitRecord h = vrt::walk_ray<vrt::Bvh8, false, kCull>(
+        tab, vrt::load_ray(o, d, tmin, tmax, i));
     out_t[i] = h.t;
     out_u[i] = h.u;
     out_v[i] = h.v;
@@ -30,14 +25,13 @@ void closest(const vrt::Table8& tab, const float* o, const float* d,
 
 }  // namespace
 
-extern "C" int vrt_bvh8_closest_cpu(const float* boxes, const int* child,
-                                    const float* tri, const int* tri_meta,
+extern "C" int vrt_bvh8_closest_cpu(const float* node, const float* tri,
                                     const float* o, const float* d,
                                     const float* tmin, const float* tmax,
                                     int n, int cull, float* out_t,
                                     float* out_u, float* out_v, int* out_tri,
                                     bool* out_bf) {
-  const vrt::Table8 tab{boxes, child, tri, tri_meta};
+  const vrt::Table8 tab{node, tri};
   if (cull)
     closest<true>(tab, o, d, tmin, tmax, n, out_t, out_u, out_v, out_tri,
                   out_bf);
@@ -47,14 +41,33 @@ extern "C" int vrt_bvh8_closest_cpu(const float* boxes, const int* child,
   return 0;
 }
 
-extern "C" int vrt_bvh8_any_cpu(const float* boxes, const int* child,
-                                const float* tri, const int* tri_meta,
+extern "C" int vrt_bvh8_any_cpu(const float* node, const float* tri,
                                 const float* o, const float* d,
                                 const float* tmin, const float* tmax, int n,
                                 bool* out_hit) {
-  const vrt::Table8 tab{boxes, child, tri, tri_meta};
+  const vrt::Table8 tab{node, tri};
   for (int i = 0; i < n; ++i)
-    out_hit[i] =
-        vrt::traverse<true, false>(tab, load_ray(o, d, tmin, tmax, i)).hit;
+    out_hit[i] = vrt::walk_ray<vrt::Bvh8, true, false>(
+                     tab, vrt::load_ray(o, d, tmin, tmax, i))
+                     .hit;
+  return 0;
+}
+
+// The sort network alone: n rows of 8 distances and 8 child ids, sorted in
+// place.
+extern "C" int vrt_bvh8_sort8_cpu(float* dist, int* kid, int n) {
+  for (int i = 0; i < n; ++i) {
+    float dd[8];
+    int kk[8];
+    for (int k = 0; k < 8; ++k) {
+      dd[k] = dist[8 * i + k];
+      kk[k] = kid[8 * i + k];
+    }
+    vrt::sort8(dd, kk);
+    for (int k = 0; k < 8; ++k) {
+      dist[8 * i + k] = dd[k];
+      kid[8 * i + k] = kk[k];
+    }
+  }
   return 0;
 }

@@ -140,7 +140,7 @@ def closest_cuda(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     if r:
         with torch.cuda.device(o.device):
             err = lib.vrt_shared_closest(
-                *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+                *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
                 *_ptrs(t, u, v, tri, bf),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
@@ -160,7 +160,7 @@ def any_cuda(table: Table2, o, d, t_min, t_max) -> Tensor:
     if r:
         with torch.cuda.device(o.device):
             err = lib.vrt_shared_any(
-                *_ptrs(*table, o, d, t_min, t_max), r, out.data_ptr(),
+                *_ptrs(*table.arrays, o, d, t_min, t_max), r, out.data_ptr(),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
@@ -195,7 +195,7 @@ def closest_twin(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32)
     bf = torch.empty((r,), dtype=torch.bool)
     twin_library().vrt_shared_closest_cpu(
-        *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+        *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
         *_ptrs(t, u, v, tri, bf),
     )
     return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
@@ -206,7 +206,7 @@ def any_twin(table: Table2, o, d, t_min, t_max) -> Tensor:
     _check(table, o, d, t_min, t_max, "cpu")
     out = torch.empty((o.shape[0],), dtype=torch.bool)
     twin_library().vrt_shared_any_cpu(
-        *_ptrs(*table, o, d, t_min, t_max), o.shape[0], out.data_ptr()
+        *_ptrs(*table.arrays, o, d, t_min, t_max), o.shape[0], out.data_ptr()
     )
     return out
 

@@ -60,7 +60,13 @@ from vulkanraytracing_torch.ops.packet_lockstep import (
     slab2,
 )
 from vulkanraytracing_torch.ops.traverse_wide import Table2, get_table2
-from vulkanraytracing_torch.ops.traverse_wide8 import STACK_DEPTH, _canon_rays, _check, _ptrs
+from vulkanraytracing_torch.ops.traverse_wide8 import (
+    STACK_DEPTH,
+    _canon_rays,
+    _check,
+    _ptrs,
+    ray_queue,
+)
 from vulkanraytracing_torch.scene.types import BVH
 
 LANE = 128  # rays per packet: one block of the kernel
@@ -137,11 +143,6 @@ def cuda_library() -> ctypes.CDLL:
     })
 
 
-def _next_packet(device) -> Tensor:
-    """The kernel's work counter: one zeroed int32 per launch."""
-    return torch.zeros((1,), dtype=torch.int32, device=device)
-
-
 def closest_cuda(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     """Launch the closest-hit kernel on the current stream."""
     o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
@@ -153,10 +154,10 @@ def closest_cuda(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32, device=o.device)
     bf = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
-        counter = _next_packet(o.device)
+        counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
             err = lib.vrt_subpacket_closest(
-                *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+                *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
                 *_ptrs(counter, t, u, v, tri, bf),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
@@ -174,10 +175,10 @@ def any_cuda(table: Table2, o, d, t_min, t_max) -> Tensor:
     r = o.shape[0]
     out = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
-        counter = _next_packet(o.device)
+        counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
             err = lib.vrt_subpacket_any(
-                *_ptrs(*table, o, d, t_min, t_max), r,
+                *_ptrs(*table.arrays, o, d, t_min, t_max), r,
                 *_ptrs(counter, out),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
@@ -213,7 +214,7 @@ def closest_twin(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32)
     bf = torch.empty((r,), dtype=torch.bool)
     twin_library().vrt_subpacket_closest_cpu(
-        *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+        *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
         *_ptrs(t, u, v, tri, bf),
     )
     return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
@@ -224,7 +225,7 @@ def any_twin(table: Table2, o, d, t_min, t_max) -> Tensor:
     _check(table, o, d, t_min, t_max, "cpu")
     out = torch.empty((o.shape[0],), dtype=torch.bool)
     twin_library().vrt_subpacket_any_cpu(
-        *_ptrs(*table, o, d, t_min, t_max), o.shape[0], out.data_ptr()
+        *_ptrs(*table.arrays, o, d, t_min, t_max), o.shape[0], out.data_ptr()
     )
     return out
 

@@ -5,8 +5,9 @@ Counterpart of ``vulkanraytracing_tpu/ops/traverse_wide.py``: the same
 every LBVH build and TLAS refit gives (``accel.lbvh.build_bvh``,
 ``accel.tlas``).  Three implementations share one table (``Table2``):
 
-- the CUDA kernel (``csrc/bvh2_traverse.cu``, one thread per ray, built
-  with nvcc for ``sm_90a`` on first use), launched for CUDA tensors;
+- the CUDA kernel (``csrc/bvh2_traverse.cu``: persistent warps that take
+  rays from a queue, each lane walking one ray; built with nvcc for
+  ``sm_90a`` on first use), launched for CUDA tensors;
 - the plain PyTorch version (``closest_plain`` / ``any_plain``): the same
   per-ray algorithm in lockstep over all rays
   (``ops.traverse_wide8.lockstep``), run for CPU tensors and held against
@@ -15,7 +16,8 @@ every LBVH build and TLAS refit gives (``accel.lbvh.build_bvh``,
   compiled by g++, used only by the tests.
 
 All three visit nodes in the same order and round every operation the
-same way, so they agree bit for bit.  Closest-hit descends the nearer hit
+same way, so they agree bit for bit, whichever lane of the kernel walks
+which ray.  Closest-hit descends the nearer hit
 child (child 0 on equal entry distances) and pushes the other; any-hit
 descends child 0 when it is hit, else child 1, and stops at the first
 occluder.  ``intersect_closest`` / ``intersect_any`` take the plain version
@@ -48,6 +50,7 @@ from vulkanraytracing_torch.ops.traverse_wide8 import (
     _ptrs,
     child_distances,
     lockstep,
+    ray_queue,
 )
 from vulkanraytracing_torch.scene.types import BVH
 
@@ -57,16 +60,35 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 
 class Table2(NamedTuple):
-    """The traversal table (``build_table2``).  Triangles are stored in
-    BVH order, so a triangle's id is its record index."""
+    """The traversal table of the three 2-wide kernels (``build_table2``).
+    Triangles are stored in BVH order, so a triangle's id is its record
+    index.  The per-ray kernel reads the packed records ``node`` and ``tri``
+    with 16-byte loads (both contiguous and 16-byte aligned; integers are
+    stored bit for bit in float32 slots); the packet kernels read ``tri``
+    and the BVH's own ``nodes``, ``child`` and ``tri_flags``, which the
+    table shares with the BVH and does not copy."""
 
+    # (N, 16) f32, a node's record: c0.lo c0.hi c1.lo c1.hi, the two child
+    # ids as int32 bits, 2 pads
+    node: Tensor
+    # (T, 12) f32: v0 xyz, e1 xyz, e2 xyz, the flags as int32 bits, 2 pads
+    tri: Tensor
     nodes: Tensor      # (N, 12) f32: c0.lo c0.hi c1.lo c1.hi
     child: Tensor      # (N, 2) i32: node id (>= 0) or leaf code (< 0)
-    tri: Tensor        # (T, 12) f32: v0 xyz, e1 xyz, e2 xyz, 3 pads
     tri_flags: Tensor  # (T,) i32: bit0 cull-disable, bits 1-2 candidate
 
     def to(self, device) -> "Table2":
         return Table2(*[t.to(device) for t in self])
+
+    @property
+    def records(self) -> tuple[Tensor, Tensor]:
+        """The per-ray kernel's arguments."""
+        return self.node, self.tri
+
+    @property
+    def arrays(self) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+        """The packet kernels' arguments."""
+        return self.nodes, self.child, self.tri, self.tri_flags
 
 
 def stack_need(bvh: BVH) -> int:
@@ -88,12 +110,16 @@ def build_table2(bvh: BVH) -> Table2:
         raise ValueError(
             f"BVH2 needs a traversal stack of {need} > {STACK_DEPTH} entries"
         )
-    return Table2(
-        nodes=bvh.nodes.to(torch.float32).contiguous(),
-        child=bvh.child_index.to(torch.int32).contiguous(),
-        tri=bvh.tris.to(torch.float32).contiguous(),
-        tri_flags=bvh.tri_flags.to(torch.int32).contiguous(),
-    )
+    nodes = bvh.nodes.to(torch.float32).contiguous()
+    child = bvh.child_index.to(torch.int32).contiguous()
+    tri_flags = bvh.tri_flags.to(torch.int32).contiguous()
+    # a few device copies and no readback: a refitted BVH gets its table on
+    # every moving frame; assembled as int32 so that every copy moves bits only
+    node = torch.cat([nodes.view(torch.int32), child, torch.zeros_like(child)], dim=1)
+    tri = bvh.tris.to(torch.float32).contiguous().view(torch.int32).clone()
+    tri[:, 9] = tri_flags
+    return Table2(node=node.view(torch.float32), tri=tri.view(torch.float32),
+                  nodes=nodes, child=child, tri_flags=tri_flags)
 
 
 def get_table2(bvh: BVH) -> Table2:
@@ -109,9 +135,12 @@ def get_table2(bvh: BVH) -> Table2:
 
 def _traverse_plain(table: Table2, o, d, t_min, t_max, any_hit: bool,
                     cull_backface: bool, counts: dict | None = None):
+    flags = table.tri.view(torch.int32)[:, 9]
+
     def node_step(node, oi, qi, tmin_i, best_i):
-        dist = child_distances(table.nodes[node].view(-1, 2, 6), oi, qi, tmin_i, best_i)
-        kids = table.child[node].long()
+        rec = table.node[node]
+        dist = child_distances(rec[:, :12].view(-1, 2, 6), oi, qi, tmin_i, best_i)
+        kids = rec[:, 12:14].view(torch.int32).long()
         h0, h1 = dist[:, 0] < BIG_T, dist[:, 1] < BIG_T
         first0 = h0 if any_hit else torch.where(h0 & h1, dist[:, 0] <= dist[:, 1], h0)
         first = torch.where(first0, kids[:, 0], kids[:, 1])
@@ -120,7 +149,7 @@ def _traverse_plain(table: Table2, o, d, t_min, t_max, any_hit: bool,
 
     def leaf_fetch(s):
         rec = table.tri[s]
-        return rec[:, 0:3], rec[:, 3:6], rec[:, 6:9], table.tri_flags[s], s.to(torch.int32)
+        return rec[:, 0:3], rec[:, 3:6], rec[:, 6:9], flags[s], s.to(torch.int32)
 
     return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface,
                     counts, boxes=2)
@@ -145,7 +174,7 @@ def any_plain(table: Table2, o, d, t_min, t_max, counts: dict | None = None) -> 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_TABLE_ARGS = [_P, _P, _P, _P]   # nodes, child, tri, tri_flags
+_TABLE_ARGS = [_P, _P]            # node, tri
 _RAY_ARGS = [_P, _P, _P, _P, _I]  # o, d, t_min, t_max, n
 _HEADERS = (native.CSRC_DIR / "bvh2_traverse.cuh",
             native.CSRC_DIR / "traverse_common.cuh")
@@ -160,8 +189,8 @@ def cuda_library() -> ctypes.CDLL:
         "bvh2_traverse", cmd, [native.CSRC_DIR / "bvh2_traverse.cu"], _HEADERS
     )
     return native.load_library(path, {
-        "vrt_bvh2_closest": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P]),
-        "vrt_bvh2_any": (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P]),
+        "vrt_bvh2_closest": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P, _P]),
+        "vrt_bvh2_any": (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P, _P]),
     })
 
 
@@ -176,10 +205,11 @@ def closest_cuda(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32, device=o.device)
     bf = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
+        counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
             err = lib.vrt_bvh2_closest(
-                *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
-                *_ptrs(t, u, v, tri, bf),
+                *_ptrs(*table.records, o, d, t_min, t_max), r, int(cull_backface),
+                *_ptrs(counter, t, u, v, tri, bf),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
@@ -196,9 +226,10 @@ def any_cuda(table: Table2, o, d, t_min, t_max) -> Tensor:
     r = o.shape[0]
     out = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
+        counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
             err = lib.vrt_bvh2_any(
-                *_ptrs(*table, o, d, t_min, t_max), r, out.data_ptr(),
+                *_ptrs(*table.records, o, d, t_min, t_max), r, *_ptrs(counter, out),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
@@ -233,7 +264,7 @@ def closest_twin(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32)
     bf = torch.empty((r,), dtype=torch.bool)
     twin_library().vrt_bvh2_closest_cpu(
-        *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
+        *_ptrs(*table.records, o, d, t_min, t_max), r, int(cull_backface),
         *_ptrs(t, u, v, tri, bf),
     )
     return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
@@ -244,7 +275,7 @@ def any_twin(table: Table2, o, d, t_min, t_max) -> Tensor:
     _check(table, o, d, t_min, t_max, "cpu")
     out = torch.empty((o.shape[0],), dtype=torch.bool)
     twin_library().vrt_bvh2_any_cpu(
-        *_ptrs(*table, o, d, t_min, t_max), o.shape[0], out.data_ptr()
+        *_ptrs(*table.records, o, d, t_min, t_max), o.shape[0], out.data_ptr()
     )
     return out
 

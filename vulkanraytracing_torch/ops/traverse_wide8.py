@@ -4,8 +4,9 @@ Counterpart of ``vulkanraytracing_tpu/ops/traverse_wide8.py``: the same
 ``Hit`` contract over the same 8-wide BVH (``accel.bvh8``), rebuilt for a
 Hopper card.  Three implementations share one table (``Table8``):
 
-- the CUDA kernel (``csrc/bvh8_traverse.cu``, one thread per ray, built
-  with nvcc for ``sm_90a`` on first use), launched for CUDA tensors;
+- the CUDA kernel (``csrc/bvh8_traverse.cu``: persistent warps that take
+  rays from a queue, each lane walking one ray; built with nvcc for
+  ``sm_90a`` on first use), launched for CUDA tensors;
 - the plain PyTorch version (``closest_plain`` / ``any_plain``): the same
   per-ray algorithm in lockstep over all rays, with an (R, depth) stack
   tensor, run for CPU tensors and held against the kernel on the card;
@@ -13,7 +14,8 @@ Hopper card.  Three implementations share one table (``Table8``):
   compiled by g++, used only by the tests.
 
 All three visit nodes in the same order and round every operation the
-same way, so they agree bit for bit.  ``intersect_closest`` /
+same way, so they agree bit for bit, whichever lane of the kernel walks
+which ray.  ``intersect_closest`` /
 ``intersect_any`` take the plain version only for CPU tensors; for CUDA
 tensors they launch the kernel, and a failed build or launch raises.
 ``LAUNCHES`` counts kernel launches per specialization.
@@ -47,15 +49,38 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 
 class Table8(NamedTuple):
-    """The traversal table, built once per BVH (``build_table8``)."""
+    """The traversal table, built once per BVH (``build_table8``): packed
+    records that the kernel reads with 16-byte loads, so both tensors are
+    contiguous and 16-byte aligned (a node record 256-byte aligned wherever
+    the allocator aligns the tensor so).  Integers are stored bit for bit
+    in float32 slots; ``boxes``, ``child`` and ``tri_meta`` decode them."""
 
-    boxes: Tensor     # (M, 48) f32: child k's box at [6k, 6k+6): lo xyz, hi xyz
-    child: Tensor     # (M, 8) i32: node id (> 0), leaf code (< 0), 0 = empty
-    tri: Tensor       # (T8, 12) f32: v0 xyz 0, e1 xyz 0, e2 xyz 0
-    tri_meta: Tensor  # (T8, 2) i32: flags, BVH-order triangle id (-1 = padding)
+    # (M, 64) f32, a node's record: children 0-3 at [0, 24) and 4-7 at
+    # [24, 48), each half as lo.x[4] lo.y[4] lo.z[4] hi.x[4] hi.y[4] hi.z[4];
+    # the 8 child ids at [48, 56) as int32 bits; 8 pads
+    node: Tensor
+    # (T8, 12) f32: v0 xyz, flags; e1 xyz, BVH-order triangle id (-1 =
+    # padding); e2 xyz, pad (flags and id as int32 bits)
+    tri: Tensor
 
     def to(self, device) -> "Table8":
         return Table8(*[t.to(device) for t in self])
+
+    @property
+    def boxes(self) -> Tensor:
+        """(M, 8, 6) f32: child k's box as lo xyz, hi xyz."""
+        m = self.node.shape[0]
+        return self.node[:, :48].view(m, 2, 6, 4).permute(0, 1, 3, 2).reshape(m, 8, 6)
+
+    @property
+    def child(self) -> Tensor:
+        """(M, 8) i32: node id (> 0), leaf code (< 0), 0 = empty."""
+        return self.node.view(torch.int32)[:, 48:56]
+
+    @property
+    def tri_meta(self) -> Tensor:
+        """(T8, 2) i32: flags, BVH-order triangle id (-1 = padding)."""
+        return self.tri.view(torch.int32)[:, [3, 7]]
 
 
 def build_table8(bvh: BVH) -> Table8:
@@ -70,29 +95,30 @@ def build_table8(bvh: BVH) -> Table8:
         raise ValueError(
             f"BVH8 needs a traversal stack of {need} > {STACK_DEPTH} entries"
         )
+    # records are assembled as int32 so that every copy moves bits only
+    m = bvh.nodes8.shape[0]
+    boxes = bvh.nodes8.float().contiguous().view(torch.int32)
+    node = torch.zeros((m, 64), dtype=torch.int32, device=boxes.device)
+    node[:, :48] = boxes.view(m, 2, 4, 6).permute(0, 1, 3, 2).reshape(m, 48)
+    node[:, 48:56] = bvh.child8.to(torch.int32)
     perm = bvh.tri_perm8.long()
     valid = perm >= 0
     idx = perm.clamp_min(0)
-    src = bvh.tris[idx]
-    tri = torch.zeros((perm.shape[0], 12), dtype=torch.float32, device=src.device)
+    src = bvh.tris[idx].float().contiguous().view(torch.int32)
+    tri = torch.zeros((perm.shape[0], 12), dtype=torch.int32, device=src.device)
     tri[:, 0:3] = src[:, 0:3]
     tri[:, 4:7] = src[:, 3:6]
     tri[:, 8:11] = src[:, 6:9]
-    tri[~valid] = 0.0
-    flags = torch.where(valid, bvh.tri_flags[idx], 0)
-    tid = torch.where(valid, idx, -1)
-    return Table8(
-        boxes=bvh.nodes8.float().contiguous(),
-        child=bvh.child8.to(torch.int32).contiguous(),
-        tri=tri,
-        tri_meta=torch.stack([flags, tid], dim=1).to(torch.int32).contiguous(),
-    )
+    tri[~valid] = 0
+    tri[:, 3] = torch.where(valid, bvh.tri_flags[idx], 0)
+    tri[:, 7] = torch.where(valid, idx, -1)
+    return Table8(node=node.view(torch.float32), tri=tri.view(torch.float32))
 
 
 def get_table8(bvh: BVH) -> Table8:
     """The BVH's cached table, built on first use (and again after the BVH
     moved to another device)."""
-    if bvh.table8 is None or bvh.table8.boxes.device != bvh.nodes8.device:
+    if bvh.table8 is None or bvh.table8.node.device != bvh.nodes8.device:
         bvh.table8 = build_table8(bvh)
     return bvh.table8
 
@@ -235,10 +261,11 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
 def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
                     cull_backface: bool, counts: dict | None = None):
     slot = torch.arange(8, device=o.device)
+    boxes, child, meta = table.boxes, table.child, table.tri_meta
 
     def node_step(node, oi, qi, tmin_i, best_i):
-        dist = child_distances(table.boxes[node].view(-1, 8, 6), oi, qi, tmin_i, best_i)
-        kids = table.child[node].long()
+        dist = child_distances(boxes[node], oi, qi, tmin_i, best_i)
+        kids = child[node].long()
         hitk = dist < BIG_T
         n_hit = hitk.sum(1)
         if any_hit:
@@ -254,8 +281,8 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
         return sorted_kids[:, 0], sorted_kids.flip(1), push, n_hit > 0
 
     def leaf_fetch(s):
-        rec, meta = table.tri[s], table.tri_meta[s]
-        return rec[:, 0:3], rec[:, 4:7], rec[:, 8:11], meta[:, 0], meta[:, 1]
+        rec, m = table.tri[s], meta[s]
+        return rec[:, 0:3], rec[:, 4:7], rec[:, 8:11], m[:, 0], m[:, 1]
 
     return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface,
                     counts, boxes=8)
@@ -279,7 +306,7 @@ def any_plain(table: Table8, o, d, t_min, t_max, counts: dict | None = None) -> 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_TABLE_ARGS = [_P, _P, _P, _P]   # boxes, child, tri, tri_meta
+_TABLE_ARGS = [_P, _P]            # node, tri
 _RAY_ARGS = [_P, _P, _P, _P, _I]  # o, d, t_min, t_max, n
 
 
@@ -298,8 +325,8 @@ def cuda_library() -> ctypes.CDLL:
            f"-DVRT_STACK_DEPTH={STACK_DEPTH}", f"-I{native.CSRC_DIR}"]
     path = native.build_library("bvh8_traverse", cmd, sources, headers)
     return native.load_library(path, {
-        "vrt_bvh8_closest": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P]),
-        "vrt_bvh8_any": (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P]),
+        "vrt_bvh8_closest": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P, _P]),
+        "vrt_bvh8_any": (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P, _P]),
     })
 
 
@@ -314,12 +341,18 @@ def _check(table: Table8, o, d, t_min, t_max, device_type: str) -> None:
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{name}: need contiguous {shape}, got {tuple(x.shape)}")
     for x in table:
-        if x.device != o.device or not x.is_contiguous():
-            raise ValueError("the table must be contiguous on the rays' device")
+        if x.device != o.device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("the table must be contiguous and 16-byte aligned on "
+                             "the rays' device")
 
 
 def _ptrs(*tensors) -> list[int]:
     return [t.data_ptr() for t in tensors]
+
+
+def ray_queue(device) -> Tensor:
+    """The kernel's ray-queue counter: one zeroed int32 per launch."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
 def closest_cuda(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
@@ -333,10 +366,11 @@ def closest_cuda(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32, device=o.device)
     bf = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
+        counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
             err = lib.vrt_bvh8_closest(
                 *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
-                *_ptrs(t, u, v, tri, bf),
+                *_ptrs(counter, t, u, v, tri, bf),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
@@ -353,9 +387,10 @@ def any_cuda(table: Table8, o, d, t_min, t_max) -> Tensor:
     r = o.shape[0]
     out = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
+        counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
             err = lib.vrt_bvh8_any(
-                *_ptrs(*table, o, d, t_min, t_max), r, out.data_ptr(),
+                *_ptrs(*table, o, d, t_min, t_max), r, *_ptrs(counter, out),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
@@ -379,7 +414,21 @@ def twin_library() -> ctypes.CDLL:
     return native.load_library(path, {
         "vrt_bvh8_closest_cpu": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P]),
         "vrt_bvh8_any_cpu": (_I, _TABLE_ARGS + _RAY_ARGS + [_P]),
+        "vrt_bvh8_sort8_cpu": (_I, [_P, _P, _I]),
     })
+
+
+def sort8_twin(dist: Tensor, kid: Tensor) -> tuple[Tensor, Tensor]:
+    """The kernel's child sort (``csrc/bvh8_traverse.cuh::sort8``) on (N, 8)
+    float32 distances and int32 child ids: both sorted by distance, equal
+    distances in slot order."""
+    dist = dist.to(torch.float32).contiguous().clone()
+    kid = kid.to(torch.int32).contiguous().clone()
+    if tuple(dist.shape) != (dist.shape[0], 8) or dist.shape != kid.shape:
+        raise ValueError(f"need (N, 8) distances and ids, got {tuple(dist.shape)}, "
+                         f"{tuple(kid.shape)}")
+    twin_library().vrt_bvh8_sort8_cpu(*_ptrs(dist, kid), dist.shape[0])
+    return dist, kid
 
 
 def closest_twin(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
