@@ -9,8 +9,8 @@ Run from the repository root.  Phases, each printing its result:
 2. build: the four traversal kernels (BVH8, BVH2, subpacket and shared
    cursor; nvcc, sm_90a) and the native BVH builders, from the sources in
    the checkout, all at once; ptxas's registers, stack, spills and shared
-   memory of each kernel specialization, and the widths of the per-ray
-   kernels' loads as the machine code has them;
+   memory of each kernel specialization, and the widths of every
+   kernel's loads and its barriers as the machine code has them;
 3. kernel against plain version: a 20,000-triangle soup and the v1 hall,
    65,536 camera and random rays each (some with t_max = 0), closest hit
    with culling on and off and any-hit; then the same comparison at the
@@ -42,8 +42,8 @@ Run from the repository root.  Phases, each printing its result:
    refitted image against a frame over a from-scratch LBVH build
    (bit-equal), the peak device memory, one profiled moving frame and one
    recorded moving frame replayed launch by launch as in phase 5;
-8. the packet kernels (subpacket, shared cursor) on the 2-wide arrays of
-   the trees: against their plain versions on the 20,000-triangle soup as
+8. the packet kernels (subpacket, shared cursor) on the packed 2-wide
+   records of the trees: against their plain versions on the 20,000-triangle soup as
    an LBVH and as an SAH tree (camera and random rays as in phase 3), then
    at the 1080p v1 frame's shapes, every field bit for bit, each kernel run
    twice; then 2 frames of ``render_frame`` at 1920x1080 with 4 bounces
@@ -52,7 +52,10 @@ Run from the repository root.  Phases, each printing its result:
    mode's first frame against phase 5's first ``BVH_KERNEL`` frame (ray
    counts within 0.1%, at most 0.1% of pixels more than 1/255 apart: the
    packet kernels let the first triangle tested win an exact tie and do not
-   commit a hit exactly at t_max); then one frame under ``TraversalMode.BVH``
+   commit a hit exactly at t_max); then one more ``BVH_SUBPACKET`` frame
+   recorded and each of its launches replayed alone through both packet
+   kernels as in phase 5, the tests of a launch counted once (by the BVH2
+   plain version) for both; then one frame under ``TraversalMode.BVH``
    (the plain packet backend, which launches no kernel) with the depth cut
    to 1 bounce, held to the same gate against a ``BVH_KERNEL`` frame of
    that depth.
@@ -66,11 +69,10 @@ of the same tree makes for the same rays (its ``counts``; the three 2-wide
 kernels are held to the BVH2 one's), times the operations of one test
 counted from the code (``BOX_OPS``, ``TRI_OPS``).  No single PyTorch call
 traverses a BVH, so ``library_ms`` is null.  ``ms`` and ``bound_ms`` are
-taken on the frame's primary rays and bounce-0 shadow rays; the four
-per-ray entries also carry ``frame_ms``, ``frame_bound_ms`` and
-``frame_launches``: the kernel's time and bound summed over the replayed
-launches of one whole frame, whose later bounces are incoherent and full
-of dead rays.
+taken on the frame's primary rays and bounce-0 shadow rays; every entry
+also carries ``frame_ms``, ``frame_bound_ms`` and ``frame_launches``: the
+kernel's time and bound summed over the replayed launches of one whole
+frame, whose later bounces are incoherent and full of dead rays.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -161,6 +163,17 @@ def replaces(source: str) -> str:
     raise RuntimeError(f"{source} names no TPU kernel it replaces")
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel specialization by its name and template flags as in the
+    source (any-hit, culling), from its mangled name."""
+    found = re.search(r"(?:traverse|shared|subpacket)_kernel", mangled)
+    if not found:
+        return mangled
+    kernel = found.group(0)
+    flags = re.findall(r"Lb([01])E", mangled[mangled.index(kernel):])
+    return kernel + (f"<{','.join(flags)}>" if flags else "")
+
+
 def ptxas_report(lib) -> list[str]:
     """Registers, stack frame, spills and static shared memory of each
     kernel specialization (its template flags as in the source: any-hit,
@@ -173,10 +186,7 @@ def ptxas_report(lib) -> list[str]:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            mangled = entry.group(1)
-            kernel = re.search(r"(?:traverse|shared|subpacket)_kernel", mangled).group(0)
-            flags = re.findall(r"Lb([01])E", mangled[mangled.index(kernel):])
-            name = kernel + (f"<{','.join(flags)}>" if flags else "")
+            name = kernel_name(entry.group(1))
         spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                            r"(\d+) bytes spill loads", line)
         if spills and name:
@@ -192,11 +202,13 @@ def ptxas_report(lib) -> list[str]:
 
 
 def sass_loads(lib) -> list[str]:
-    """The global loads of each kernel in a library, by width, and its
-    local and shared loads and stores, counted in the machine code
-    (``cuobjdump -sass``): the per-ray kernels should read their tables
-    with 16-byte loads (8 bytes where only half a group is used) and only
-    the ray itself with 4-byte ones.  Empty where the toolkit has no
+    """The global loads of each kernel in a library, by width, its local
+    and shared loads and stores and its block-wide barriers (``BAR``),
+    counted in the machine code (``cuobjdump -sass``): every kernel should
+    read its table with 16-byte loads (8 bytes where only half a group is
+    used) and only the ray itself with 4-byte ones; the subpacket kernel
+    has no barrier at all, the shared-cursor kernel one in its step and
+    two where it takes a packet.  Empty where the toolkit has no
     cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -211,11 +223,11 @@ def sass_loads(lib) -> list[str]:
                 rows.append(f"{name}: global loads " + ", ".join(
                     f"{n} x {w} B" for w, n in sorted(counts["LDG"].items()))
                     + f"; local {counts['LDL'][0]} loads / {counts['STL'][0]} stores; "
-                    f"shared {counts['LDS'][0]} / {counts['STS'][0]}")
-            flags = re.findall(r"Lb([01])E", function.group(1))
-            name = "traverse_kernel" + (f"<{','.join(flags)}>" if flags else "")
+                    f"shared {counts['LDS'][0]} / {counts['STS'][0]}; "
+                    f"barriers {counts['BAR'][0]}")
+            name = kernel_name(function.group(1))
             counts = collections.defaultdict(collections.Counter)
-        op = re.search(r"\b(LDG|LDL|STL|LDS|STS)((?:\.\w+)*)", line)
+        op = re.search(r"\b(LDG|LDL|STL|LDS|STS|BAR)((?:\.\w+)*)", line)
         if op and counts is not None:
             width = 16 if ".128" in op.group(2) else 8 if ".64" in op.group(2) else 4
             counts[op.group(1)][width if op.group(1) == "LDG" else 0] += 1
@@ -368,46 +380,67 @@ def record_frame(render):
     return calls
 
 
-def replay(tw, get_table, table_tensors, calls, label) -> dict:
+def replay(modules, counter, get_table, table_tensors, calls, label) -> dict:
     """Each recorded launch of a frame (``record_frame``) alone, through
-    the per-ray traversal module ``tw`` over ``get_table(bvh)``: the
-    kernel's ms (CUDA events, mean of 5), the live rays (t_min <= t_max),
-    the box and triangle tests the plain version makes for these rays, the
-    bound they give (``table_tensors(table)``: the tensors the kernel
-    reads), and the kernel held to the plain version in every field.  Prints one line per launch
-    and returns {"closest" / "any": (summed kernel ms, summed bound ms,
-    launches)}."""
-    totals = {"closest": [0.0, 0.0, 0], "any": [0.0, 0.0, 0]}
+    each traversal module of ``modules`` ({name: module}) over
+    ``get_table(bvh)``: the kernel's ms (CUDA events, mean of 5), the live
+    rays (t_min <= t_max), and the kernel, run twice, held to the module's
+    plain version in every field.  The box and triangle tests of a launch
+    are those the per-ray plain version ``counter`` makes for its rays,
+    counted once per launch and used for every module's bound
+    (``table_tensors(table)``: the tensors the kernels read).  Prints one
+    line per launch and module and returns {name: {"closest" / "any":
+    (summed kernel ms, summed bound ms, launches)}}."""
+    totals = {name: {"closest": [0.0, 0.0, 0], "any": [0.0, 0.0, 0]} for name in modules}
     t0 = time.perf_counter()
     for i, (kind, bvh, rays, cull) in enumerate(calls):
         table = get_table(bvh)
         counts = {}
         if kind == "closest":
-            k = tw.closest_cuda(table, *rays, cull)
-            p = tw.closest_plain(table, *rays, cull, counts=counts)
-            equal = all(torch.equal(a, b) for a, b in zip(k, p))
-            ms = cuda_ms(lambda: tw.closest_cuda(table, *rays, cull), 5)
+            counted = counter.closest_plain(table, *rays, cull, counts=counts)
         else:
-            k = tw.any_cuda(table, *rays)
-            p = tw.any_plain(table, *rays, counts=counts)
-            equal = torch.equal(k, p)
-            ms = cuda_ms(lambda: tw.any_cuda(table, *rays), 5)
-        check(equal, f"{label} launch {i} ({kind}): kernel equals plain version")
+            counted = (counter.any_plain(table, *rays, counts=counts),)
         n = rays[0].shape[0]
         live = int((rays[2] <= rays[3]).sum())
         bound_ms, by = bound(kind, n, table_tensors(table), counts)
-        print(f"{label} launch {i} {kind}: {n} rays, {live} live; kernel {ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({by}); {counts['box_tests']} box and "
-              f"{counts['tri_tests']} triangle tests; equal in every field", flush=True)
-        tot = totals[kind]
-        tot[0] += ms
-        tot[1] += bound_ms
-        tot[2] += 1
-    print(f"{label} frame: " + "; ".join(
-        f"{kind} {ms:.3f} ms over {n} launches against a bound of {b:.4f} ms"
-        for kind, (ms, b, n) in totals.items())
-        + f"; replayed in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {kind: tuple(v) for kind, v in totals.items()}
+        print(f"{label} launch {i} {kind}: {n} rays, {live} live; bound {bound_ms:.4f} ms "
+              f"({by}); {counts['box_tests']} box and {counts['tri_tests']} triangle "
+              f"tests", flush=True)
+        for name, tw in modules.items():
+            if kind == "closest":
+                def run():
+                    return tuple(tw.closest_cuda(table, *rays, cull))
+                plain = counted if tw is counter else tw.closest_plain(table, *rays, cull)
+            else:
+                def run():
+                    return (tw.any_cuda(table, *rays),)
+                plain = counted if tw is counter else (tw.any_plain(table, *rays),)
+            first, second = run(), run()
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(first, plain, second)),
+                  f"{label} launch {i} ({kind}) {name}: kernel equals plain version, twice")
+            ms = cuda_ms(run, 5)
+            print(f"{label} launch {i} {kind} {name}: kernel {ms:.3f} ms; equal in every "
+                  f"field, twice", flush=True)
+            tot = totals[name][kind]
+            tot[0] += ms
+            tot[1] += bound_ms
+            tot[2] += 1
+    for name, per_kind in totals.items():
+        print(f"{label} frame, {name}: " + "; ".join(
+            f"{kind} {ms:.3f} ms over {n} launches against a bound of {b:.4f} ms"
+            for kind, (ms, b, n) in per_kind.items()), flush=True)
+    print(f"{label} frame: replayed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: {kind: tuple(v) for kind, v in per_kind.items()}
+            for name, per_kind in totals.items()}
+
+
+def lap(phase: str, since: float) -> float:
+    """Print the wall seconds of ``phase`` (begun at ``since``) and return
+    the time now, where the next phase begins."""
+    now = time.perf_counter()
+    print(f"[time] {phase}: {now - since:.1f} s", flush=True)
+    return now
 
 
 def launch_counts(kernels) -> dict:
@@ -554,7 +587,7 @@ def main() -> int:
                "subpacket": (tsub, ("closest", "any")), "shared": (tpal, ("closest", "any"))}
 
     # -- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
+    t0 = phase_start = time.perf_counter()
     builds = [m.cuda_library for m, _ in kernels.values()] + [sah._library, bvh8._library]
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = [future.result() for future in [pool.submit(build) for build in builds]]
@@ -563,9 +596,10 @@ def main() -> int:
     for name, lib in zip(kernels, libs):
         for row in ptxas_report(lib):
             print(f"[2 build] ptxas {name} {row}", flush=True)
-    for name, lib in list(zip(kernels, libs))[:2]:
+    for name, lib in zip(kernels, libs):
         for row in sass_loads(lib):
             print(f"[2 build] sass {name} {row}", flush=True)
+    phase_start = lap("2 build", phase_start)
 
     # -- 3. kernel against plain version ------------------------------
     t0 = time.perf_counter()
@@ -605,6 +639,7 @@ def main() -> int:
     work8 = per_ray_work(tw, table8, v1_closest, v1_shadow)
     bounds = {f"bvh8_{kind}": bound(kind, rays[0].shape[0], table8, work8[kind])
               for kind, rays in (("closest", v1_closest), ("any", v1_shadow))}
+    phase_start = lap("3 kernel", phase_start)
 
     # -- 4. the slice against brute force -------------------------------
     cornell = build_scene_bvh(cornell_box_scene(device=device))
@@ -623,6 +658,7 @@ def main() -> int:
     print(f"[4 slice] Cornell 64x64, 4 frames: BVH8 kernel vs brute force max "
           f"diff {diff:.3g} (<= 1/255), rays {int(ra)} == {int(rb)}, "
           f"bit-equal {bool(torch.equal(a, b))}", flush=True)
+    phase_start = lap("4 slice", phase_start)
 
     # -- 5. the main path ------------------------------------------------
     cfg = Config(width=1920, height=1080, max_bounce_count=4, ray_chunk_size=1 << 22,
@@ -670,9 +706,9 @@ def main() -> int:
                   sum(frame_ms) / len(frame_ms), args.save_dir)
     # one more frame with every traversal launch recorded, then each alone
     calls = record_frame(lambda: render_frame(v1, cfg, camera, state))
-    in_frame = {f"bvh8_{kind}": v for kind, v in
-                replay(tw, tw.get_table8, tuple, calls, "[5 replay] bvh8").items()}
+    in_frame = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[5 replay]")
     del calls
+    phase_start = lap("5 main", phase_start)
 
     # -- 6. BVH2 kernel against plain version ---------------------------
     _, soup_bvh = build_bvh(triangle_soup_scene(20000, seed=1, device=device).geometry)
@@ -711,6 +747,7 @@ def main() -> int:
         bounds[f"bvh2_{kind}"] = bound(kind, rays[0].shape[0], table2.records,
                                        work2[kind])
     del closest_rays, shadow_rays
+    phase_start = lap("6 bvh2", phase_start)
 
     # -- 7. the dynamic path through Engine -------------------------------
     cfg = Config(width=1920, height=1080, max_bounce_count=4,
@@ -802,10 +839,10 @@ def main() -> int:
     # one more moving frame with every traversal launch recorded, then each
     # alone over that frame's refitted tree
     calls = record_frame(eng.draw)
-    in_frame.update({f"bvh2_{kind}": v for kind, v in
-                     replay(tw2, tw2.get_table2, operator.attrgetter("records"), calls,
-                            "[7 replay] bvh2").items()})
+    in_frame.update(replay({"bvh2": tw2}, tw2, tw2.get_table2,
+                           operator.attrgetter("records"), calls, "[7 replay]"))
     del calls
+    phase_start = lap("7 dynamic", phase_start)
 
     # -- 8. the packet kernels ----------------------------------------------
     packet = {"subpacket": TraversalMode.BVH_SUBPACKET, "shared": TraversalMode.BVH_SHARED}
@@ -816,7 +853,7 @@ def main() -> int:
                     f"[8 packet] soup20k {tree} {name}", reps=5)
     table2 = tw2.get_table2(v1.bvh)
     print(f"[8 packet] at the 1080p v1 frame's shapes, over the SAH tree's 2-wide "
-          f"arrays ({table2.nodes.shape[0]} nodes, stack need {tw2.stack_need(v1.bvh)} "
+          f"records ({table2.node.shape[0]} nodes, stack need {tw2.stack_need(v1.bvh)} "
           f"of {tw2.STACK_DEPTH}):", flush=True)
     work = per_ray_work(tw2, table2, v1_closest, v1_shadow)
     print(f"[8 packet] the per-ray plain version's work on these rays: {work}", flush=True)
@@ -827,7 +864,7 @@ def main() -> int:
         result[f"{name}_any"] = compare(module, table2, *v1_shadow, "frame shadow " + name,
                                         culls=(), reps=5)["any"]
         for kind, rays in (("closest", v1_closest), ("any", v1_shadow)):
-            bounds[f"{name}_{kind}"] = bound(kind, rays[0].shape[0], table2.arrays,
+            bounds[f"{name}_{kind}"] = bound(kind, rays[0].shape[0], table2.records,
                                              work[kind])
 
     ref_img, ref_rays = first_frame
@@ -859,6 +896,15 @@ def main() -> int:
                     np.save(args.save_dir / f"{name}_frame.npy", img[::4, ::4].cpu().numpy())
         launches.update({k: c for k, c in launch_counts(kernels).items() if k.startswith(name)})
 
+    # one more BVH_SUBPACKET frame with every traversal launch recorded, then
+    # each alone through both packet kernels, over the v1 tree's records
+    cfg = main_cfg.replace(traversal=TraversalMode.BVH_SUBPACKET)
+    state = create_render_state(cfg, device)
+    calls = record_frame(lambda: render_frame(v1, cfg, main_camera, state))
+    in_frame.update(replay({name: kernels[name][0] for name in packet}, tw2, tw2.get_table2,
+                           operator.attrgetter("records"), calls, "[8 replay]"))
+    del calls
+
     # the plain packet backend (TraversalMode.BVH, no kernel of its own):
     # one frame with the depth cut to 1 bounce (its lockstep loop takes
     # seconds a call on the incoherent rays of deeper bounces), against a
@@ -879,6 +925,7 @@ def main() -> int:
           f"{rays / ms / 1e3:.2f} Mrays/s; no kernel launched", flush=True)
     frame_gate("BVH (1 bounce)", state.accumulation, rays, ref.accumulation,
                int(ref_stats.rays))
+    lap("8 packet", phase_start)
 
     lines = []
     for key, (err, ms, plain_ms) in result.items():
@@ -889,8 +936,9 @@ def main() -> int:
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         in_frame_txt = ""
-        if key in in_frame:
-            f_ms, f_bound_ms, f_launches = in_frame[key]
+        kind = key.rsplit("_", 1)[1]
+        if name in in_frame:
+            f_ms, f_bound_ms, f_launches = in_frame[name][kind]
             lines[-1].update(frame_ms=f_ms, frame_bound_ms=f_bound_ms,
                              frame_launches=f_launches)
             in_frame_txt = (f"; {f_ms:.3f} ms over the {f_launches} launches of one "

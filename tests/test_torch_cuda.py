@@ -1,8 +1,8 @@
 """The traversal kernels on the card against their plain versions (BVH8,
 BVH2, subpacket and shared cursor), the per-ray kernels' persistent warps
-at odd ray counts and the subpacket kernel's persistent blocks run twice,
-the plain packet backend on the card against the CPU, and the slice
-through the BVH8 kernel against brute force.
+and the packet kernels' persistent warps and blocks at odd ray counts, run
+twice, with dead rays and with none, the plain packet backend on the card
+against the CPU, and the slice through the BVH8 kernel against brute force.
 
 Marked ``gpu``: the CUDA kernel has no CPU mode, so these skip where no
 CUDA device is present (the CPU twin in ``test_torch_traverse.py`` covers
@@ -180,16 +180,72 @@ def test_packet_any_kernel_matches_plain_and_counts(cuda, name):
     assert torch.equal(kernel, module.any_plain(table, *rays))
 
 
-def test_subpacket_kernel_runs_alike_twice(cuda):
-    """Which block takes which packet from the work counter changes from
-    run to run; the results must not."""
-    table, rays = _case2(cuda)
+def _alike_twice(module, table, rays):
     for cull in (True, False):
-        first = tsub.closest_cuda(table, *rays, cull_backface=cull)
-        second = tsub.closest_cuda(table, *rays, cull_backface=cull)
+        first = module.closest_cuda(table, *rays, cull_backface=cull)
+        second = module.closest_cuda(table, *rays, cull_backface=cull)
         for field, a, b in zip(first._fields, first, second):
             assert torch.equal(a, b), field
-    assert torch.equal(tsub.any_cuda(table, *rays), tsub.any_cuda(table, *rays))
+    assert torch.equal(module.any_cuda(table, *rays), module.any_cuda(table, *rays))
+
+
+def test_subpacket_kernel_runs_alike_twice(cuda):
+    """Which warp takes which packet from the work counter changes from
+    run to run; the results must not."""
+    _alike_twice(tsub, *_case2(cuda))
+
+
+def test_shared_cursor_kernel_runs_alike_twice(cuda):
+    """Which block takes which packet changes from run to run, and two
+    launches in a row each have a work counter of their own."""
+    _alike_twice(tpal, *_case2(cuda))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1023, 1025, 8191])
+@pytest.mark.parametrize("name", sorted(PACKET))
+def test_packet_kernels_at_odd_ray_counts_twice(cuda, name, n):
+    """A last packet that is partly past the rays, fewer packets than the
+    grid has warps or blocks, and a count that fills no packet evenly.
+    Every specialization equals its plain version in every field, is alike
+    when run twice, and counts one launch per call."""
+    module = PACKET[name]
+    table, rays = _case2(cuda)
+    rays = [x[:n].contiguous() for x in rays]
+    for cull in (True, False):
+        before = module.LAUNCHES["closest"]
+        first = module.closest_cuda(table, *rays, cull_backface=cull)
+        second = module.closest_cuda(table, *rays, cull_backface=cull)
+        assert module.LAUNCHES["closest"] == before + 2
+        plain = module.closest_plain(table, *rays, cull_backface=cull)
+        torch.cuda.synchronize()
+        for field, a, b, c in zip(plain._fields, first, second, plain):
+            assert a.shape == (n,) and torch.equal(a, c) and torch.equal(a, b), field
+    before = module.LAUNCHES["any"]
+    first, second = module.any_cuda(table, *rays), module.any_cuda(table, *rays)
+    assert module.LAUNCHES["any"] == before + 2
+    assert torch.equal(first, module.any_plain(table, *rays)) and torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", sorted(PACKET))
+def test_packet_kernels_with_dead_rays(cuda, name):
+    """All rays dead: no packet starts, every result is a miss and the
+    kernel still counts its launch; no rays: no launch, empty results."""
+    module = PACKET[name]
+    table, rays = _case2(cuda)
+    o, d, t_min, _ = rays
+    dead = torch.full_like(t_min, -1.0)
+    before = module.LAUNCHES["closest"]
+    hit = module.closest_cuda(table, o, d, t_min, dead)
+    assert module.LAUNCHES["closest"] == before + 1
+    plain = module.closest_plain(table, o, d, t_min, dead)
+    for field, a, b in zip(plain._fields, hit, plain):
+        assert torch.equal(a, b), field
+    assert not hit.is_hit.any() and not module.any_cuda(table, o, d, t_min, dead).any()
+    before = dict(module.LAUNCHES)
+    none = [x[:0] for x in rays]
+    assert module.closest_cuda(table, *none).t.shape == (0,)
+    assert module.any_cuda(table, *none).shape == (0,)
+    assert dict(module.LAUNCHES) == before
 
 
 def test_packet_backend_on_the_card_matches_the_cpu(cuda):

@@ -39,7 +39,8 @@
 
 namespace vrt {
 
-// The per-ray kernel's table: packed records.
+// The kernel's table: packed records (the packet kernels read the same,
+// packet_common.cuh::Table).
 struct Records2 {
   // (N, 16): c0.lo c0.hi c1.lo c1.hi, then the two child ids as int32 bits:
   // node id (>= 0) or leaf code (< 0); 2 pads.
@@ -47,14 +48,6 @@ struct Records2 {
   // (T, 12): v0 xyz, e1 xyz, e2 xyz, the flags as int32 bits (bit0
   // cull-disable, bits 1-2 candidate), 2 pads.
   const float* tri;
-};
-
-// The packet kernels' table (packet_common.cuh): the BVH's own arrays.
-struct Table2 {
-  const float* nodes;    // (N, 12): c0.lo c0.hi c1.lo c1.hi
-  const int* child;      // (N, 2): node id (>= 0) or leaf code (< 0)
-  const float* tri;      // (T, 12): Records2::tri
-  const int* tri_flags;  // (T,): bit0 cull-disable, bits 1-2 candidate
 };
 
 struct Bvh2 {

@@ -1,108 +1,147 @@
 // CPU twin of the shared-cursor packet kernel (shared_traverse.cu): the
-// same per-lane code and packet decisions (packet_common.cuh) compiled by
-// g++, with host loops over the 1024 lanes of each packet in place of the
-// block's threads and barriers.  Used only by the tests, which hold it
-// against the plain PyTorch version.
+// same per-ray code, votes and decisions (packet_common.cuh) compiled by
+// g++, with host loops over the threads and warps of the block that serves
+// a packet, packets in order.  A thread carries the kernel's
+// kRaysPerThread rays in the kernel's layout; each warp merges its
+// threads' votes, the warps' votes are merged as every warp of the kernel
+// merges them, and the packet's one cursor and stack move by the decision
+// every warp takes alike.  The any-hit end rides the next step's vote, as
+// in the kernel.
+// Used only by the tests, which hold it against the plain PyTorch version.
 #include <vector>
 
 #include "packet_common.cuh"
 
 namespace {
 
-using vrt::HitRecord;
-using vrt::Ray;
 namespace pk = vrt::packet;
 
 constexpr int kLanes = 1024;
+constexpr int kRays = pk::kRaysPerThread;
+constexpr int kThreads = kLanes / kRays;
+constexpr int kWarps = kThreads / 32;
+static_assert(kWarps >= 1 && kWarps * 32 * kRays == kLanes,
+              "a 1024-ray packet is a block of whole warps");
+
+struct Thread {
+  pk::Lane lanes[kRays];
+  bool live0[kRays], live[kRays];
+};
 
 template <bool kAnyHit, bool kCull>
-void run(const vrt::Table2& tab, const float* o, const float* d,
-         const float* tmin, const float* tmax, int n, float* out_t,
-         float* out_u, float* out_v, int* out_tri, bool* out_flag) {
-  std::vector<Ray> r(kLanes);
-  std::vector<float> ix(kLanes), iy(kLanes), iz(kLanes), best(kLanes),
-      tn0(kLanes), tn1(kLanes);
-  std::vector<HitRecord> h(kLanes);
-  std::vector<char> live0(kLanes), l0(kLanes), l1(kLanes);
-  int stack[vrt::kStackDepth];
+void run(const pk::Table& tab, const float* o, const float* d,
+        const float* tmin, const float* tmax, int n, float* out_t,
+        float* out_u, float* out_v, int* out_tri, bool* out_flag) {
+  std::vector<Thread> th(kThreads);
+  std::vector<pk::Vote> votes(kThreads);
   for (long long base = 0; base < n; base += kLanes) {
     bool any_live = false;
-    for (int k = 0; k < kLanes; ++k) {
-      r[k] = pk::load_lane(o, d, tmin, tmax, base + k, n);
-      ix[k] = vrt::safe_inv(r[k].dx);
-      iy[k] = vrt::safe_inv(r[k].dy);
-      iz[k] = vrt::safe_inv(r[k].dz);
-      live0[k] = r[k].tmin <= r[k].tmax;
-      best[k] = pk::initial_best(r[k]);
-      h[k] = HitRecord{vrt::kBig, 0.0f, 0.0f, 0, false, false};
-      any_live = any_live || live0[k];
-    }
-    int sp = 0;
-    int cur = any_live ? 0 : pk::kDone;
-    while (cur != pk::kDone) {
-      const float* b = tab.nodes + 12 * static_cast<long long>(cur);
-      const int c0 = tab.child[2 * static_cast<long long>(cur)];
-      const int c1 = tab.child[2 * static_cast<long long>(cur) + 1];
-      bool hit0 = false, hit1 = false;
-      float te0 = vrt::kBig, te1 = vrt::kBig;
-      for (int k = 0; k < kLanes; ++k) {
-        const bool live = kAnyHit ? live0[k] && !h[k].hit : live0[k];
-        l0[k] = live && pk::slab(b, r[k], ix[k], iy[k], iz[k], best[k], tn0[k]);
-        l1[k] = live && pk::slab(b + 6, r[k], ix[k], iy[k], iz[k], best[k], tn1[k]);
-        hit0 = hit0 || l0[k];
-        hit1 = hit1 || l1[k];
-        if (l0[k]) te0 = fminf(te0, tn0[k]);
-        if (l1[k]) te1 = fminf(te1, tn1[k]);
+    for (int t = 0; t < kThreads; ++t)
+      for (int j = 0; j < kRays; ++j) {
+        pk::Lane& l = th[t].lanes[j];
+        l = pk::load_lane(o, d, tmin, tmax, base + t + kThreads * j, n);
+        th[t].live0[j] = l.r.tmin <= l.r.tmax;
+        any_live = any_live || th[t].live0[j];
       }
-      bool all_done = true;
-      for (int k = 0; k < kLanes; ++k) {
-        const bool live = kAnyHit ? live0[k] && !h[k].hit : live0[k];
-        if (hit0 && c0 < 0) pk::test_leaf<kCull>(tab, c0, r[k], live, best[k], h[k]);
-        if (hit1 && c1 < 0) pk::test_leaf<kCull>(tab, c1, r[k], live, best[k], h[k]);
-        all_done = all_done && (h[k].hit || !live0[k]);
+    int stack[vrt::kStackDepth];
+    int cur = any_live ? 0 : vrt::kDone, sp = 0;
+    while (cur != vrt::kDone) {
+      const pk::Record rec = pk::load_node(tab, cur);
+      const int c0 = pk::child0(rec), c1 = pk::child1(rec);
+      for (int t = 0; t < kThreads; ++t) {
+        float te0 = vrt::kBig, te1 = vrt::kBig;
+        unsigned flags = 0u;
+        for (int j = 0; j < kRays; ++j) {
+          const pk::Lane& l = th[t].lanes[j];
+          const bool live = kAnyHit ? th[t].live0[j] && !l.h.hit : th[t].live0[j];
+          th[t].live[j] = live;
+          float tn0, tn1;
+          if (live && pk::slab0(rec, l, tn0)) {
+            te0 = fminf(te0, tn0);
+            flags |= pk::kHit0;
+          }
+          if (live && pk::slab1(rec, l, tn1)) {
+            te1 = fminf(te1, tn1);
+            flags |= pk::kHit1;
+          }
+          if (kAnyHit && live) flags |= pk::kNotDone;
+        }
+        votes[t] = pk::thread_vote(te0, te1, flags);
       }
-      const int next = pk::shared_next(hit0, hit1, te0, te1, c0, c1, stack, sp);
-      cur = kAnyHit && all_done ? pk::kDone : next;
-    }
-    for (int k = 0; k < kLanes && base + k < n; ++k) {
-      const long long i = base + k;
-      if (kAnyHit) {
-        out_flag[i] = h[k].hit;
-        continue;
+      const pk::Vote v = pk::packet_vote<kWarps>(votes.data());
+      if (kAnyHit && !(v.flags & pk::kNotDone)) break;
+      const bool hit0 = v.flags & pk::kHit0, hit1 = v.flags & pk::kHit1;
+      for (int t = 0; t < kThreads; ++t) {
+        if (hit0 && c0 < 0) pk::test_leaf<kCull>(tab, c0, th[t].live, th[t].lanes);
+        if (hit1 && c1 < 0) pk::test_leaf<kCull>(tab, c1, th[t].live, th[t].lanes);
       }
-      out_t[i] = h[k].hit ? best[k] : vrt::kBig;
-      out_u[i] = h[k].u;
-      out_v[i] = h[k].v;
-      out_tri[i] = h[k].tri;
-      out_flag[i] = h[k].backface;
+      cur = pk::shared_decide(v, c0, c1, stack, sp);
     }
+    for (int t = 0; t < kThreads; ++t)
+      for (int j = 0; j < kRays; ++j) {
+        const long long i = base + t + kThreads * j;
+        if (i < n)
+          pk::store_lane<kAnyHit>(th[t].lanes[j], i, out_t, out_u, out_v, out_tri,
+                                  out_flag);
+      }
   }
 }
 
 }  // namespace
 
-extern "C" int vrt_shared_closest_cpu(const float* nodes, const int* child,
-                                      const float* tri, const int* tri_flags,
-                                      const float* o, const float* d,
-                                      const float* tmin, const float* tmax,
-                                      int n, int cull, float* out_t,
-                                      float* out_u, float* out_v, int* out_tri,
-                                      bool* out_bf) {
-  const vrt::Table2 tab{nodes, child, tri, tri_flags};
+extern "C" void vrt_shared_closest_cpu(const float* node, const float* tri,
+                                       const float* o, const float* d,
+                                       const float* tmin, const float* tmax,
+                                       int n, int cull, float* out_t,
+                                       float* out_u, float* out_v, int* out_tri,
+                                       bool* out_bf) {
+  const pk::Table tab{node, tri};
   if (cull)
     run<false, true>(tab, o, d, tmin, tmax, n, out_t, out_u, out_v, out_tri, out_bf);
   else
     run<false, false>(tab, o, d, tmin, tmax, n, out_t, out_u, out_v, out_tri, out_bf);
-  return 0;
 }
 
-extern "C" int vrt_shared_any_cpu(const float* nodes, const int* child,
-                                  const float* tri, const int* tri_flags,
-                                  const float* o, const float* d,
-                                  const float* tmin, const float* tmax, int n,
-                                  bool* out_hit) {
-  const vrt::Table2 tab{nodes, child, tri, tri_flags};
-  run<true, false>(tab, o, d, tmin, tmax, n, nullptr, nullptr, nullptr,
-                   nullptr, out_hit);
-  return 0;
+extern "C" void vrt_shared_any_cpu(const float* node, const float* tri,
+                                   const float* o, const float* d,
+                                   const float* tmin, const float* tmax, int n,
+                                   bool* out_hit) {
+  const pk::Table tab{node, tri};
+  run<true, false>(tab, o, d, tmin, tmax, n, nullptr, nullptr, nullptr, nullptr,
+                   out_hit);
+}
+
+// One step's vote and decision on given per-ray values (1024 each): hit0 /
+// hit1 say whether the ray hit the child's box, tn0 / tn1 its entry
+// distance there.  Through the kernel's layout of rays over threads and
+// warps: returns the next cursor and moves stack / *sp as the step does
+// (vrt_shared_next_cpu's arguments).
+extern "C" int vrt_shared_decide_cpu(const bool* hit0, const bool* hit1,
+                                     const float* tn0, const float* tn1,
+                                     int c0, int c1, int* stack, int* sp) {
+  std::vector<pk::Vote> votes(kThreads);
+  for (int t = 0; t < kThreads; ++t) {
+    float a = vrt::kBig, b = vrt::kBig;
+    unsigned flags = 0u;
+    for (int j = 0; j < kRays; ++j) {
+      const int i = t + kThreads * j;
+      if (hit0[i]) {
+        a = fminf(a, tn0[i]);
+        flags |= pk::kHit0;
+      }
+      if (hit1[i]) {
+        b = fminf(b, tn1[i]);
+        flags |= pk::kHit1;
+      }
+    }
+    votes[t] = pk::thread_vote(a, b, flags);
+  }
+  const pk::Vote v = pk::packet_vote<kWarps>(votes.data());
+  return pk::shared_decide(v, c0, c1, stack, *sp);
+}
+
+// shared_next itself on whole-packet minima and hit flags.
+extern "C" int vrt_shared_next_cpu(int hit0, int hit1, float te0, float te1,
+                                   int c0, int c1, int* stack, int* sp) {
+  return pk::shared_next(hit0, hit1, te0, te1, c0, c1, stack, *sp);
 }

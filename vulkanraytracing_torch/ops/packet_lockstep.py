@@ -7,7 +7,9 @@ node or leaf visit per step with no host synchronization inside a step.
 versions from these helpers (held bit for bit against their CUDA kernels,
 so each helper rounds as ``csrc/packet_common.cuh`` does), and
 ``ops.traverse_packet`` (``TraversalMode.BVH``) is made of them alone.
-The two kernels' shared ctypes argument lists and headers live here too.
+What the two kernels' wrappers share lives here too: the ctypes argument
+lists, the build of a kernel or of its CPU twin from a source directory,
+and one launch of either.
 """
 
 from __future__ import annotations
@@ -22,20 +24,117 @@ from vulkanraytracing_torch import native
 from vulkanraytracing_torch.accel.lbvh import decode_leaf
 from vulkanraytracing_torch.ops.intersect import BIG_T, Hit, moller_trumbore
 from vulkanraytracing_torch.ops.traverse_wide import Table2
-from vulkanraytracing_torch.ops.traverse_wide8 import STACK_DEPTH, TINY
+from vulkanraytracing_torch.ops.traverse_wide8 import (
+    STACK_DEPTH,
+    TINY,
+    _canon_rays,
+    _check,
+    _ptrs,
+    ray_queue,
+)
 
 DONE = -(1 << 30)  # a packet's cursor once it has nothing left to visit
 CHECK_EVERY = 8  # lockstep steps between two looks at which packets run
 _RESULTS = ("best", "hit", "tri", "u", "v", "bf")
 
-# the packet kernels' ctypes arguments: the Table2 arrays, then the rays
+# the packet kernels' ctypes arguments: Table2's packed records
+# (``table_args``), then the rays
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-TABLE_ARGS = [_P, _P, _P, _P]   # nodes, child, tri, tri_flags
+TABLE_ARGS = [_P, _P]            # node, tri
 RAY_ARGS = [_P, _P, _P, _P, _I]  # o, d, t_min, t_max, n
-HEADERS = (native.CSRC_DIR / "packet_common.cuh",
-           native.CSRC_DIR / "bvh2_traverse.cuh",
-           native.CSRC_DIR / "traverse_common.cuh")
+HEADER_NAMES = ("packet_common.cuh", "traverse_common.cuh")
+
+
+def table_args(table: Table2) -> list[int]:
+    """``TABLE_ARGS`` of a table: the kernels and twins read ``node`` and
+    ``tri`` with 16-byte loads (``_check`` holds both to contiguous,
+    16-byte-aligned storage)."""
+    node, tri = table.records
+    if (node.dtype != torch.float32 or node.ndim != 2 or node.shape[1] != 16
+            or tri.dtype != torch.float32 or tri.ndim != 2 or tri.shape[1] != 12):
+        raise ValueError(f"need float32 (N, 16) node and (T, 12) triangle records, got "
+                         f"{node.dtype} {tuple(node.shape)}, {tri.dtype} {tuple(tri.shape)}")
+    return [node.data_ptr(), tri.data_ptr()]
+
+
+def kernel_library(name: str, src=native.CSRC_DIR) -> ctypes.CDLL:
+    """Build (nvcc, sm_90a) and load the packet kernel ``name``
+    ("subpacket" or "shared") from the sources in ``src``."""
+    cmd = [native.nvcc_path(), *native.NVCC_FLAGS, f"-DVRT_STACK_DEPTH={STACK_DEPTH}",
+           f"-I{src}"]
+    path = native.build_library(f"{name}_traverse", cmd, [src / f"{name}_traverse.cu"],
+                                tuple(src / h for h in HEADER_NAMES))
+    return native.load_library(path, {
+        f"vrt_{name}_closest": (_I, TABLE_ARGS + RAY_ARGS + [_I] + [_P] * 7),
+        f"vrt_{name}_any": (_I, TABLE_ARGS + RAY_ARGS + [_P] * 3),
+    })
+
+
+def twin_library(name: str, extra: dict, src=native.CSRC_DIR) -> ctypes.CDLL:
+    """The kernel's headers compiled by g++ for the host, from the sources
+    in ``src``; ``extra`` declares the twin's own test entries."""
+    cmd = [*native.GXX, "-ffp-contract=off", f"-DVRT_STACK_DEPTH={STACK_DEPTH}", f"-I{src}"]
+    path = native.build_library(f"{name}_twin", cmd, [src / f"{name}_twin.cpp"],
+                                tuple(src / h for h in HEADER_NAMES))
+    return native.load_library(path, {
+        f"vrt_{name}_closest_cpu": (None, TABLE_ARGS + RAY_ARGS + [_I] + [_P] * 5),
+        f"vrt_{name}_any_cpu": (None, TABLE_ARGS + RAY_ARGS + [_P]),
+        **extra,
+    })
+
+
+def _outputs(o: Tensor, any_hit: bool) -> tuple:
+    r, dev = o.shape[0], o.device
+    if any_hit:
+        return (torch.empty((r,), dtype=torch.bool, device=dev),)
+    t = torch.empty((r,), dtype=torch.float32, device=dev)
+    return (t, torch.empty_like(t), torch.empty_like(t),
+            torch.empty((r,), dtype=torch.int32, device=dev),
+            torch.empty((r,), dtype=torch.bool, device=dev))
+
+
+def launch_kernel(library, name: str, table: Table2, o, d, t_min, t_max,
+                  cull_backface: bool | None) -> tuple[tuple, bool]:
+    """One launch of the packet kernel ``name`` from ``library()`` (built
+    once the arguments have passed their checks) on the current stream:
+    closest hit (t, u, v, tri, backface) with ``cull_backface``, or the
+    any-hit verdicts for ``None``.  The launch gets a ray-queue counter
+    of its own.  Returns the outputs and whether a kernel was launched (not
+    for no rays); a failed launch raises."""
+    any_hit = cull_backface is None
+    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
+    _check(table, o, d, t_min, t_max, "cuda")
+    lib = library()
+    out = _outputs(o, any_hit)
+    r = o.shape[0]
+    if not r:
+        return out, False
+    kind = "any" if any_hit else "closest"
+    mode = [] if any_hit else [int(cull_backface)]
+    with torch.cuda.device(o.device):
+        err = getattr(lib, f"vrt_{name}_{kind}")(
+            *table_args(table), *_ptrs(o, d, t_min, t_max), r, *mode,
+            *_ptrs(ray_queue(o.device), *out),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} {kind} launch failed: cudaError {err}")
+    return out, True
+
+
+def run_twin(lib: ctypes.CDLL, name: str, table: Table2, o, d, t_min, t_max,
+             cull_backface: bool | None) -> tuple:
+    """The CPU twin of the packet kernel ``name``, with ``launch_kernel``'s
+    arguments."""
+    any_hit = cull_backface is None
+    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
+    _check(table, o, d, t_min, t_max, "cpu")
+    out = _outputs(o, any_hit)
+    kind = "any" if any_hit else "closest"
+    mode = [] if any_hit else [int(cull_backface)]
+    getattr(lib, f"vrt_{name}_{kind}_cpu")(
+        *table_args(table), *_ptrs(o, d, t_min, t_max), o.shape[0], *mode, *_ptrs(*out))
+    return out
 
 
 def packet_state(o, d, t_min, t_max, lanes: int, tiny: float = TINY,

@@ -9,9 +9,10 @@ child when any live lane's slab test hits it, nearer child first by the
 packet's minimum entry distance, and tests hit leaf children at once.
 Three implementations share the BVH2 kernel's table (``Table2``):
 
-- the CUDA kernel (``csrc/shared_traverse.cu``, one block of 1024 threads
-  per packet, built with nvcc for ``sm_90a`` on first use), launched for
-  CUDA tensors;
+- the CUDA kernel (``csrc/shared_traverse.cu``: persistent blocks of 256
+  threads, each serving one packet at a time, a thread carrying 4 of its
+  rays, and taking its next packet from a global atomic counter; built
+  with nvcc for ``sm_90a`` on first use), launched for CUDA tensors;
 - the plain PyTorch version (``closest_plain`` / ``any_plain``): packet
   lockstep over ``(P, 1024)`` lane tensors, one cursor per packet, with no
   host synchronization inside a step, run for CPU tensors and held against
@@ -19,11 +20,13 @@ Three implementations share the BVH2 kernel's table (``Table2``):
 - the CPU twin (``closest_twin`` / ``any_twin``): the kernel's header
   compiled by g++, used only by the tests.
 
-All three visit nodes in the same order and round every operation the
-same way, so they agree bit for bit.  The contract is the TPU packet
-kernels' (``csrc/packet_common.cuh``): det epsilon 1e-30, the window
-``t_min <= t < best`` with ``best`` starting at ``t_max`` (a hit exactly
-at ``t_max`` is not committed), and on equal t the first triangle tested
+The kernel and the twin read the table's packed records (``Table2.node``,
+``Table2.tri``) with 16-byte loads; the plain version reads the BVH's own
+arrays, the same bits.  All three visit nodes in the same order and round
+every operation the same way, so they agree bit for bit.  The contract is
+the TPU packet kernels' (``csrc/packet_common.cuh``): det epsilon 1e-30,
+the window ``t_min <= t < best`` with ``best`` starting at ``t_max`` (a hit
+exactly at ``t_max`` is not committed), and on equal t the first triangle tested
 wins.  ``intersect_closest`` / ``intersect_any`` take the plain version
 only for CPU tensors; for CUDA tensors they launch the kernel, and a
 failed build or launch raises.  ``LAUNCHES`` counts kernel launches
@@ -44,23 +47,23 @@ import functools
 import torch
 from torch import Tensor
 
-from vulkanraytracing_torch import native
 from vulkanraytracing_torch.ops.intersect import BIG_T, Hit
 from vulkanraytracing_torch.ops.packet_lockstep import (
     DONE,
-    HEADERS,
-    RAY_ARGS,
-    TABLE_ARGS,
     commit_leaves,
     descend,
     flat_hit,
+    kernel_library,
+    launch_kernel,
     max_leaf_count,
     packet_state,
     run_packets,
+    run_twin,
     slab2,
 )
+from vulkanraytracing_torch.ops.packet_lockstep import twin_library as packet_twin_library
 from vulkanraytracing_torch.ops.traverse_wide import Table2, get_table2
-from vulkanraytracing_torch.ops.traverse_wide8 import STACK_DEPTH, _canon_rays, _check, _ptrs
+from vulkanraytracing_torch.ops.traverse_wide8 import _canon_rays
 from vulkanraytracing_torch.scene.types import BVH
 
 LANE = 1024  # rays per packet: one block of the kernel
@@ -109,106 +112,53 @@ def any_plain(table: Table2, o, d, t_min, t_max) -> Tensor:
 
 # --- the CUDA kernel -------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
 
 @functools.cache
 def cuda_library() -> ctypes.CDLL:
     """Build (nvcc, sm_90a) and load the traversal kernel."""
-    cmd = [native.nvcc_path(), *native.NVCC_FLAGS,
-           f"-DVRT_STACK_DEPTH={STACK_DEPTH}", f"-I{native.CSRC_DIR}"]
-    path = native.build_library(
-        "shared_traverse", cmd, [native.CSRC_DIR / "shared_traverse.cu"], HEADERS
-    )
-    return native.load_library(path, {
-        "vrt_shared_closest": (_I, TABLE_ARGS + RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P]),
-        "vrt_shared_any": (_I, TABLE_ARGS + RAY_ARGS + [_P, _P]),
-    })
+    return kernel_library("shared")
 
 
 def closest_cuda(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     """Launch the closest-hit kernel on the current stream."""
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cuda")
-    lib = cuda_library()
-    r = o.shape[0]
-    t = torch.empty((r,), dtype=torch.float32, device=o.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri = torch.empty((r,), dtype=torch.int32, device=o.device)
-    bf = torch.empty((r,), dtype=torch.bool, device=o.device)
-    if r:
-        with torch.cuda.device(o.device):
-            err = lib.vrt_shared_closest(
-                *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
-                *_ptrs(t, u, v, tri, bf),
-                torch.cuda.current_stream(o.device).cuda_stream,
-            )
-        if err:
-            raise RuntimeError(f"shared-cursor closest-hit launch failed: cudaError {err}")
+    out, launched = launch_kernel(cuda_library, "shared", table, o, d, t_min, t_max,
+                                  bool(cull_backface))
+    if launched:
         LAUNCHES["closest"] += 1
-    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+    return Hit(*out)
 
 
 def any_cuda(table: Table2, o, d, t_min, t_max) -> Tensor:
     """Launch the any-hit kernel on the current stream."""
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cuda")
-    lib = cuda_library()
-    r = o.shape[0]
-    out = torch.empty((r,), dtype=torch.bool, device=o.device)
-    if r:
-        with torch.cuda.device(o.device):
-            err = lib.vrt_shared_any(
-                *_ptrs(*table.arrays, o, d, t_min, t_max), r, out.data_ptr(),
-                torch.cuda.current_stream(o.device).cuda_stream,
-            )
-        if err:
-            raise RuntimeError(f"shared-cursor any-hit launch failed: cudaError {err}")
+    out, launched = launch_kernel(cuda_library, "shared", table, o, d, t_min, t_max, None)
+    if launched:
         LAUNCHES["any"] += 1
-    return out
+    return out[0]
 
 
 # --- the CPU twin (tests only) --------------------------------------------
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
 
 @functools.cache
 def twin_library() -> ctypes.CDLL:
-    """The kernel's header compiled by g++ for the host."""
-    cmd = [*native.GXX, "-ffp-contract=off", f"-DVRT_STACK_DEPTH={STACK_DEPTH}",
-           f"-I{native.CSRC_DIR}"]
-    path = native.build_library(
-        "shared_twin", cmd, [native.CSRC_DIR / "shared_twin.cpp"], HEADERS
-    )
-    return native.load_library(path, {
-        "vrt_shared_closest_cpu": (_I, TABLE_ARGS + RAY_ARGS + [_I, _P, _P, _P, _P, _P]),
-        "vrt_shared_any_cpu": (_I, TABLE_ARGS + RAY_ARGS + [_P]),
+    """The kernel's headers compiled by g++ for the host."""
+    return packet_twin_library("shared", {
+        "vrt_shared_decide_cpu": (_I, [_P, _P, _P, _P, _I, _I, _P, _P]),
+        "vrt_shared_next_cpu": (_I, [_I, _I, _F, _F, _I, _I, _P, _P]),
     })
 
 
 def closest_twin(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cpu")
-    r = o.shape[0]
-    t = torch.empty((r,), dtype=torch.float32)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri = torch.empty((r,), dtype=torch.int32)
-    bf = torch.empty((r,), dtype=torch.bool)
-    twin_library().vrt_shared_closest_cpu(
-        *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
-        *_ptrs(t, u, v, tri, bf),
-    )
-    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+    return Hit(*run_twin(twin_library(), "shared", table, o, d, t_min, t_max,
+                         bool(cull_backface)))
 
 
 def any_twin(table: Table2, o, d, t_min, t_max) -> Tensor:
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cpu")
-    out = torch.empty((o.shape[0],), dtype=torch.bool)
-    twin_library().vrt_shared_any_cpu(
-        *_ptrs(*table.arrays, o, d, t_min, t_max), o.shape[0], out.data_ptr()
-    )
-    return out
+    return run_twin(twin_library(), "shared", table, o, d, t_min, t_max, None)[0]
 
 
 # --- public entries --------------------------------------------------------

@@ -9,18 +9,21 @@ may hold a leaf code: an interior step moves it by the packet's minimum
 entry distances, a leaf step tests the leaf for every lane and pops.
 Three implementations share the BVH2 kernel's table (``Table2``):
 
-- the CUDA kernel (``csrc/subpacket_traverse.cu``): a persistent grid of
-  128-thread blocks, each taking its next packet from a global atomic
-  counter when it finishes one (the TPU kernel's row refill), built with
-  nvcc for ``sm_90a`` on first use, launched for CUDA tensors;
+- the CUDA kernel (``csrc/subpacket_traverse.cu``): persistent warps, each
+  serving one packet (a lane carries 4 of its rays) and taking its next
+  packet from a global atomic counter when it finishes one (the TPU
+  kernel's row refill), built with nvcc for ``sm_90a`` on first use,
+  launched for CUDA tensors;
 - the plain PyTorch version (``closest_plain`` / ``any_plain``): packet
   lockstep over ``(P, 128)`` lane tensors (``ops.packet_lockstep``),
   run for CPU tensors and held against the kernel on the card;
 - the CPU twin (``closest_twin`` / ``any_twin``): the kernel's header
   compiled by g++, used only by the tests.
 
-Packets are independent, so the order in which blocks take them changes
-nothing: all three agree bit for bit.  The contract is the TPU packet
+The kernel and the twin read the table's packed records (``Table2.node``,
+``Table2.tri``) with 16-byte loads; the plain version reads the BVH's own
+arrays, the same bits.  Packets are independent, so the order in which
+warps take them changes nothing: all three agree bit for bit.  The contract is the TPU packet
 kernels' (``csrc/packet_common.cuh``; see ``ops.traverse_pallas``).
 Closest-hit goes to the nearer hit child (child 0 on equal distances) and
 pushes the other; any-hit goes to child 0 when it is hit, else child 1,
@@ -43,33 +46,27 @@ import functools
 import torch
 from torch import Tensor
 
-from vulkanraytracing_torch import native
 from vulkanraytracing_torch.ops.intersect import BIG_T, Hit
 from vulkanraytracing_torch.ops.packet_lockstep import (
     DONE,
-    HEADERS,
-    RAY_ARGS,
-    TABLE_ARGS,
     advance,
     commit_leaves,
     flat_hit,
+    kernel_library,
+    launch_kernel,
     max_leaf_count,
     nearer_first,
     packet_state,
     run_packets,
+    run_twin,
     slab2,
 )
+from vulkanraytracing_torch.ops.packet_lockstep import twin_library as packet_twin_library
 from vulkanraytracing_torch.ops.traverse_wide import Table2, get_table2
-from vulkanraytracing_torch.ops.traverse_wide8 import (
-    STACK_DEPTH,
-    _canon_rays,
-    _check,
-    _ptrs,
-    ray_queue,
-)
+from vulkanraytracing_torch.ops.traverse_wide8 import _canon_rays
 from vulkanraytracing_torch.scene.types import BVH
 
-LANE = 128  # rays per packet: one block of the kernel
+LANE = 128  # rays per packet: one warp of the kernel
 
 # Kernel launches per specialization ("closest", "any"), counted by the
 # CUDA wrappers only.
@@ -125,109 +122,53 @@ def any_plain(table: Table2, o, d, t_min, t_max) -> Tensor:
 
 # --- the CUDA kernel -------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
 
 @functools.cache
 def cuda_library() -> ctypes.CDLL:
     """Build (nvcc, sm_90a) and load the traversal kernel."""
-    cmd = [native.nvcc_path(), *native.NVCC_FLAGS,
-           f"-DVRT_STACK_DEPTH={STACK_DEPTH}", f"-I{native.CSRC_DIR}"]
-    path = native.build_library(
-        "subpacket_traverse", cmd, [native.CSRC_DIR / "subpacket_traverse.cu"], HEADERS
-    )
-    return native.load_library(path, {
-        "vrt_subpacket_closest": (_I, TABLE_ARGS + RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P, _P]),
-        "vrt_subpacket_any": (_I, TABLE_ARGS + RAY_ARGS + [_P, _P, _P]),
-    })
+    return kernel_library("subpacket")
 
 
 def closest_cuda(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
     """Launch the closest-hit kernel on the current stream."""
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cuda")
-    lib = cuda_library()
-    r = o.shape[0]
-    t = torch.empty((r,), dtype=torch.float32, device=o.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri = torch.empty((r,), dtype=torch.int32, device=o.device)
-    bf = torch.empty((r,), dtype=torch.bool, device=o.device)
-    if r:
-        counter = ray_queue(o.device)
-        with torch.cuda.device(o.device):
-            err = lib.vrt_subpacket_closest(
-                *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
-                *_ptrs(counter, t, u, v, tri, bf),
-                torch.cuda.current_stream(o.device).cuda_stream,
-            )
-        if err:
-            raise RuntimeError(f"subpacket closest-hit launch failed: cudaError {err}")
+    out, launched = launch_kernel(cuda_library, "subpacket", table, o, d, t_min, t_max,
+                                  bool(cull_backface))
+    if launched:
         LAUNCHES["closest"] += 1
-    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+    return Hit(*out)
 
 
 def any_cuda(table: Table2, o, d, t_min, t_max) -> Tensor:
     """Launch the any-hit kernel on the current stream."""
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cuda")
-    lib = cuda_library()
-    r = o.shape[0]
-    out = torch.empty((r,), dtype=torch.bool, device=o.device)
-    if r:
-        counter = ray_queue(o.device)
-        with torch.cuda.device(o.device):
-            err = lib.vrt_subpacket_any(
-                *_ptrs(*table.arrays, o, d, t_min, t_max), r,
-                *_ptrs(counter, out),
-                torch.cuda.current_stream(o.device).cuda_stream,
-            )
-        if err:
-            raise RuntimeError(f"subpacket any-hit launch failed: cudaError {err}")
+    out, launched = launch_kernel(cuda_library, "subpacket", table, o, d, t_min, t_max, None)
+    if launched:
         LAUNCHES["any"] += 1
-    return out
+    return out[0]
 
 
 # --- the CPU twin (tests only) --------------------------------------------
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
 
 @functools.cache
 def twin_library() -> ctypes.CDLL:
-    """The kernel's header compiled by g++ for the host."""
-    cmd = [*native.GXX, "-ffp-contract=off", f"-DVRT_STACK_DEPTH={STACK_DEPTH}",
-           f"-I{native.CSRC_DIR}"]
-    path = native.build_library(
-        "subpacket_twin", cmd, [native.CSRC_DIR / "subpacket_twin.cpp"], HEADERS
-    )
-    return native.load_library(path, {
-        "vrt_subpacket_closest_cpu": (_I, TABLE_ARGS + RAY_ARGS + [_I, _P, _P, _P, _P, _P]),
-        "vrt_subpacket_any_cpu": (_I, TABLE_ARGS + RAY_ARGS + [_P]),
+    """The kernel's headers compiled by g++ for the host."""
+    return packet_twin_library("subpacket", {
+        "vrt_subpacket_decide_cpu": (_I, [_I, _P, _P, _I, _I, _P, _P]),
+        "vrt_subpacket_next_cpu": (_I, [_I, _I, _I, _F, _F, _I, _I, _P, _P]),
     })
 
 
 def closest_twin(table: Table2, o, d, t_min, t_max, cull_backface=True) -> Hit:
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cpu")
-    r = o.shape[0]
-    t = torch.empty((r,), dtype=torch.float32)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri = torch.empty((r,), dtype=torch.int32)
-    bf = torch.empty((r,), dtype=torch.bool)
-    twin_library().vrt_subpacket_closest_cpu(
-        *_ptrs(*table.arrays, o, d, t_min, t_max), r, int(cull_backface),
-        *_ptrs(t, u, v, tri, bf),
-    )
-    return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
+    return Hit(*run_twin(twin_library(), "subpacket", table, o, d, t_min, t_max,
+                         bool(cull_backface)))
 
 
 def any_twin(table: Table2, o, d, t_min, t_max) -> Tensor:
-    o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
-    _check(table, o, d, t_min, t_max, "cpu")
-    out = torch.empty((o.shape[0],), dtype=torch.bool)
-    twin_library().vrt_subpacket_any_cpu(
-        *_ptrs(*table.arrays, o, d, t_min, t_max), o.shape[0], out.data_ptr()
-    )
-    return out
+    return run_twin(twin_library(), "subpacket", table, o, d, t_min, t_max, None)[0]
 
 
 # --- public entries --------------------------------------------------------

@@ -62,11 +62,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 class Table2(NamedTuple):
     """The traversal table of the three 2-wide kernels (``build_table2``).
     Triangles are stored in BVH order, so a triangle's id is its record
-    index.  The per-ray kernel reads the packed records ``node`` and ``tri``
+    index.  All three kernels read the packed records ``node`` and ``tri``
     with 16-byte loads (both contiguous and 16-byte aligned; integers are
-    stored bit for bit in float32 slots); the packet kernels read ``tri``
-    and the BVH's own ``nodes``, ``child`` and ``tri_flags``, which the
-    table shares with the BVH and does not copy."""
+    stored bit for bit in float32 slots); the packet kernels' plain
+    versions read ``tri`` and the BVH's own ``nodes``, ``child`` and
+    ``tri_flags``, which the table shares with the BVH and does not copy."""
 
     # (N, 16) f32, a node's record: c0.lo c0.hi c1.lo c1.hi, the two child
     # ids as int32 bits, 2 pads
@@ -82,12 +82,12 @@ class Table2(NamedTuple):
 
     @property
     def records(self) -> tuple[Tensor, Tensor]:
-        """The per-ray kernel's arguments."""
+        """The kernels' arguments."""
         return self.node, self.tri
 
     @property
     def arrays(self) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-        """The packet kernels' arguments."""
+        """What the packet kernels' plain versions read."""
         return self.nodes, self.child, self.tri, self.tri_flags
 
 
