@@ -21,44 +21,67 @@ Run from the repository root.  Phases, each printing its result:
    force;
 5. the main path: the v1 scene (262,144-triangle target), SAH build and
    BVH8 collapse, then 3 frames of ``render_frame`` at 1920x1080 with 4
-   bounces, with per-frame time, rays, Mrays/s and kernel launch counts;
-   then one more frame under ``torch.profiler``: the device's busy time,
-   its idle share of the frame's wall time and the costliest kernels; then
-   one more frame with the arguments of every traversal launch recorded,
-   and each recorded launch replayed alone: kernel ms, live rays, the plain
-   version's box and triangle tests for these rays, the bound they give,
-   kernel = plain version in every field;
+   bounces (the wavefront sort on), with per-frame time, rays, Mrays/s and
+   kernel launch counts; frame 0 again under ``VRT_DEBUG_NO_SORT=1``,
+   bit-equal in image and ray count; the sort's calls timed by CUDA events
+   in one frame; then one more frame under ``torch.profiler``: the
+   device's busy time, its idle share of the frame's wall time and the
+   costliest kernels; then one more frame with the arguments of every
+   traversal launch recorded, and each recorded launch replayed alone:
+   kernel ms, live rays, the plain version's box and triangle tests for
+   these rays, the bound they give, kernel = plain version in every field;
+   and an unsorted frame's launches replayed, kernel ms only;
 6. BVH2 kernel against plain version: the 20,000-triangle soup as an LBVH
    with no collapse (camera and random rays as in phase 3), then the
    dynamic frame's shapes (its primary rays with culling on and off, its
    bounce-0 shadow rays);
 7. the dynamic path through ``Engine``: the v1 hall as instance 0 plus 64
    orbiting spheres (327,436 triangles), TLAS build on the device, then
-   5 frames at 1920x1080 with 4 bounces (the build frame and 4 moving
+   3 frames at 1920x1080 with 4 bounces (the build frame and 2 moving
    frames, each refitting the TLAS and resetting the accumulation) with
    refit ms (CUDA events around the Engine's refit, no synchronization
    inside the frame), frame ms, rays, Mrays/s and the launches of all
    four kernel specializations, one static frame that accumulates, the
    refitted image against a frame over a from-scratch LBVH build
-   (bit-equal), the peak device memory, one profiled moving frame and one
-   recorded moving frame replayed launch by launch as in phase 5;
+   (bit-equal), the peak device memory, one profiled moving frame, and
+   one recorded moving frame's launches replayed alone as in phase 5;
 8. the packet kernels (subpacket, shared cursor) on the packed 2-wide
    records of the trees: against their plain versions on the 20,000-triangle soup as
    an LBVH and as an SAH tree (camera and random rays as in phase 3), then
    at the 1080p v1 frame's shapes, every field bit for bit, each kernel run
    twice; then 2 frames of ``render_frame`` at 1920x1080 with 4 bounces
    under each of ``TraversalMode.BVH_SUBPACKET`` and ``BVH_SHARED`` with
-   per-frame time, rays, Mrays/s and the launches of every kernel, each
+   per-frame time, rays, Mrays/s, the launches of every kernel and the
+   caching allocator's ``cudaMalloc`` calls and reserve, each
    mode's first frame against phase 5's first ``BVH_KERNEL`` frame (ray
    counts within 0.1%, at most 0.1% of pixels more than 1/255 apart: the
    packet kernels let the first triangle tested win an exact tie and do not
-   commit a hit exactly at t_max); then one more ``BVH_SUBPACKET`` frame
-   recorded and each of its launches replayed alone through both packet
-   kernels as in phase 5, the tests of a launch counted once (by the BVH2
-   plain version) for both; then one frame under ``TraversalMode.BVH``
-   (the plain packet backend, which launches no kernel) with the depth cut
-   to 1 bounce, held to the same gate against a ``BVH_KERNEL`` frame of
-   that depth.
+   commit a hit exactly at t_max), the ``BVH_SUBPACKET`` frame 0 again
+   under ``VRT_DEBUG_NO_SORT=1`` to the same gate (a packet's ties follow
+   its packet's visit order, which the sort changes); then one more
+   ``BVH_SUBPACKET`` frame recorded and each of its launches replayed alone
+   through both packet kernels, kernel ms and bound (the tests of a launch
+   counted once, by the BVH2 plain version), an unsorted frame's launches
+   likewise, kernel ms only, and every launch of a 480x270 frame (1/16 of
+   the rays) held to both plain versions; then one frame under
+   ``TraversalMode.BVH`` (the plain packet backend, which launches no
+   kernel) with the depth cut to 1 bounce, held to the same gate against a
+   ``BVH_KERNEL`` frame of that depth;
+9. the real workload: ``sponza_like_scene(262144, workload="real")``
+   (textures, alpha-tested foliage, an HDR sky), SAH build, BVH8 collapse
+   and the cutout subset's tree, with its triangle and cutout counts, its
+   texture pool's bytes and the build seconds; 3 frames at 1920x1080 with
+   4 bounces through ``BVH_KERNEL`` with ms, rays, Mrays/s and the BVH8
+   launches split by table (the opaque view, the subset); a profiled frame,
+   and one more with named ranges (texture sampling, ``_hit_alpha``, the
+   alpha rounds, traversal, the sort) and the device time inside each;
+   frame 0 again under ``VRT_DEBUG_NO_SORT=1``, bit-equal; a recorded
+   frame whose launches are replayed alone as in phase 5, kernel ms by
+   table (the opaque view, the subset) and kernel = plain version in every
+   field over both tables; and a 128x72
+   frame at the 20,000-triangle target through ``BVH_KERNEL`` against
+   ``BRUTE_FORCE`` (both with the alpha re-trace): at most 0.1% of the
+   channels more than 1/255 apart.
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -72,15 +95,19 @@ traverses a BVH, so ``library_ms`` is null.  ``ms`` and ``bound_ms`` are
 taken on the frame's primary rays and bounce-0 shadow rays; every entry
 also carries ``frame_ms``, ``frame_bound_ms`` and ``frame_launches``: the
 kernel's time and bound summed over the replayed launches of one whole
-frame, whose later bounces are incoherent and full of dead rays.
+frame, whose later bounces are full of dead rays; ``frame_ms_unsorted``,
+the same sum over an unsorted frame (BVH8 and the packet kernels); and
+the BVH8 entries ``real_launches``, ``real_frame_ms``,
+``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
 describing each kernel; the last is ``{"ok": true, "device": {...}}``.
 With ``--save-dir`` the last frame of each path is written there as a
 .npy image (``main_frame.npy``, ``dynamic_frame.npy``,
-``subpacket_frame.npy``, ``shared_frame.npy``) and the profiled frames'
-Chrome traces as ``frame_trace.json`` and ``dynamic_frame_trace.json``.
+``subpacket_frame.npy``, ``shared_frame.npy``, ``real_frame.npy``) and the
+profiled frames' Chrome traces as ``frame_trace.json``,
+``dynamic_frame_trace.json`` and ``real_frame_trace.json``.
 """
 
 from __future__ import annotations
@@ -352,84 +379,161 @@ def frame_gate(name, img, rays, ref_img, ref_rays) -> None:
 
 def record_frame(render):
     """Run ``render()`` (one frame) and record the arguments of every
-    traversal launch it makes, in order: ``ops.trace.trace_closest`` and
-    ``trace_any`` are wrapped for this frame only.  Returns the frame's
-    launches as (kind, the BVH traced, clones of o, d, t_min, t_max, the
-    culling flag)."""
+    traversal launch it makes, in order: ``ops.trace.traverse_closest``
+    and ``traverse_any``, through which every traversal of a tree goes,
+    are wrapped for this frame only.  Returns the frame's launches as
+    (kind, the BVH traced, clones of o, d, t_min, t_max, the culling
+    flag); the BVH tells the tables apart (a scene's tree, its opaque view,
+    its cutout subset)."""
     from vulkanraytracing_torch.ops import trace
 
     calls = []
-    closest, blocked = trace.trace_closest, trace.trace_any
+    closest, blocked = trace.traverse_closest, trace.traverse_any
 
-    def record_closest(scene, cfg, o, d, t_min, t_max, cull_backface=True):
-        calls.append(("closest", scene.bvh,
-                      tuple(x.clone() for x in (o, d, t_min, t_max)), cull_backface))
-        return closest(scene, cfg, o, d, t_min, t_max, cull_backface=cull_backface)
+    def record_closest(cfg, bvh, o, d, t_min, t_max, cull_backface):
+        calls.append(("closest", bvh, tuple(x.clone() for x in (o, d, t_min, t_max)),
+                      cull_backface))
+        return closest(cfg, bvh, o, d, t_min, t_max, cull_backface)
 
-    def record_any(scene, cfg, o, d, t_min, t_max):
-        calls.append(("any", scene.bvh,
-                      tuple(x.clone() for x in (o, d, t_min, t_max)), False))
-        return blocked(scene, cfg, o, d, t_min, t_max)
+    def record_any(cfg, bvh, o, d, t_min, t_max):
+        calls.append(("any", bvh, tuple(x.clone() for x in (o, d, t_min, t_max)), False))
+        return blocked(cfg, bvh, o, d, t_min, t_max)
 
-    trace.trace_closest, trace.trace_any = record_closest, record_any
+    trace.traverse_closest, trace.traverse_any = record_closest, record_any
     try:
         render()
         torch.cuda.synchronize()
     finally:
-        trace.trace_closest, trace.trace_any = closest, blocked
+        trace.traverse_closest, trace.traverse_any = closest, blocked
     return calls
 
 
-def replay(modules, counter, get_table, table_tensors, calls, label) -> dict:
+class TableCounts:
+    """Traversal calls per (table, kind) while active: ``ops.trace``'s
+    ``traverse_closest`` / ``traverse_any`` are wrapped, and ``name_of``
+    names the BVH a call traverses.  Each call with rays launches one
+    kernel, so the sums are checked against the wrappers' own counts."""
+
+    def __init__(self, name_of):
+        self.name_of = name_of
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        from vulkanraytracing_torch.ops import trace
+
+        self._saved = trace.traverse_closest, trace.traverse_any
+        closest, blocked = self._saved
+
+        def count_closest(cfg, bvh, o, *rest):
+            self.counts[(self.name_of(bvh), "closest")] += int(o.shape[0] > 0)
+            return closest(cfg, bvh, o, *rest)
+
+        def count_any(cfg, bvh, o, *rest):
+            self.counts[(self.name_of(bvh), "any")] += int(o.shape[0] > 0)
+            return blocked(cfg, bvh, o, *rest)
+
+        trace.traverse_closest, trace.traverse_any = count_closest, count_any
+        return self
+
+    def __exit__(self, *exc):
+        from vulkanraytracing_torch.ops import trace
+
+        trace.traverse_closest, trace.traverse_any = self._saved
+
+
+class NoSort:
+    """``VRT_DEBUG_NO_SORT=1`` for the frames inside, restored after."""
+
+    def __enter__(self):
+        import os
+
+        self._saved = os.environ.get("VRT_DEBUG_NO_SORT")
+        os.environ["VRT_DEBUG_NO_SORT"] = "1"
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        if self._saved is None:
+            os.environ.pop("VRT_DEBUG_NO_SORT", None)
+        else:
+            os.environ["VRT_DEBUG_NO_SORT"] = self._saved
+
+
+def replay(modules, counter, get_table, table_tensors, calls, label, check_plain=True,
+           count=True, name_of=None) -> dict:
     """Each recorded launch of a frame (``record_frame``) alone, through
     each traversal module of ``modules`` ({name: module}) over
-    ``get_table(bvh)``: the kernel's ms (CUDA events, mean of 5), the live
-    rays (t_min <= t_max), and the kernel, run twice, held to the module's
-    plain version in every field.  The box and triangle tests of a launch
-    are those the per-ray plain version ``counter`` makes for its rays,
-    counted once per launch and used for every module's bound
-    (``table_tensors(table)``: the tensors the kernels read).  Prints one
-    line per launch and module and returns {name: {"closest" / "any":
-    (summed kernel ms, summed bound ms, launches)}}."""
+    ``get_table(bvh)``: the kernel's ms (CUDA events, mean of 5) and the
+    live rays (t_min <= t_max).  With ``check_plain`` the kernel, run twice, is
+    held to the module's plain version in every field.  With ``count`` the
+    box and triangle tests of a launch are those the per-ray plain version
+    ``counter`` makes for its rays, counted once per launch and used for
+    every module's bound (``table_tensors(table)``: the tensors the kernels
+    read).  ``name_of(bvh)`` names each launch's table, and the sums are
+    also printed per table.  Prints one line per launch and module and
+    returns {name: {"closest" / "any": (summed kernel ms, summed bound ms,
+    launches)}}."""
     totals = {name: {"closest": [0.0, 0.0, 0], "any": [0.0, 0.0, 0]} for name in modules}
+    per_table = collections.defaultdict(lambda: [0.0, 0.0, 0])
     t0 = time.perf_counter()
     for i, (kind, bvh, rays, cull) in enumerate(calls):
         table = get_table(bvh)
-        counts = {}
-        if kind == "closest":
-            counted = counter.closest_plain(table, *rays, cull, counts=counts)
-        else:
-            counted = (counter.any_plain(table, *rays, counts=counts),)
+        where = f" ({name_of(bvh)})" if name_of else ""
         n = rays[0].shape[0]
         live = int((rays[2] <= rays[3]).sum())
-        bound_ms, by = bound(kind, n, table_tensors(table), counts)
-        print(f"{label} launch {i} {kind}: {n} rays, {live} live; bound {bound_ms:.4f} ms "
-              f"({by}); {counts['box_tests']} box and {counts['tri_tests']} triangle "
-              f"tests", flush=True)
+        counted, bound_ms = None, 0.0
+        if count:
+            counts = {}
+            if kind == "closest":
+                counted = counter.closest_plain(table, *rays, cull, counts=counts)
+            else:
+                counted = (counter.any_plain(table, *rays, counts=counts),)
+            bound_ms, by = bound(kind, n, table_tensors(table), counts)
+            print(f"{label} launch {i}{where} {kind}: {n} rays, {live} live; bound "
+                  f"{bound_ms:.4f} ms ({by}); {counts['box_tests']} box and "
+                  f"{counts['tri_tests']} triangle tests", flush=True)
+        else:
+            print(f"{label} launch {i}{where} {kind}: {n} rays, {live} live", flush=True)
         for name, tw in modules.items():
             if kind == "closest":
                 def run():
                     return tuple(tw.closest_cuda(table, *rays, cull))
-                plain = counted if tw is counter else tw.closest_plain(table, *rays, cull)
             else:
                 def run():
                     return (tw.any_cuda(table, *rays),)
-                plain = counted if tw is counter else (tw.any_plain(table, *rays),)
-            first, second = run(), run()
-            check(all(torch.equal(a, b) and torch.equal(a, c)
-                      for a, b, c in zip(first, plain, second)),
-                  f"{label} launch {i} ({kind}) {name}: kernel equals plain version, twice")
+            first = run()
+            if check_plain:
+                if tw is counter and counted is not None:
+                    plain = counted
+                elif kind == "closest":
+                    plain = tw.closest_plain(table, *rays, cull)
+                else:
+                    plain = (tw.any_plain(table, *rays),)
+                second = run()
+                check(all(torch.equal(a, b) and torch.equal(a, c)
+                           for a, b, c in zip(first, plain, second)),
+                      f"{label} launch {i} ({kind}) {name}: kernel equals plain version, twice")
             ms = cuda_ms(run, 5)
-            print(f"{label} launch {i} {kind} {name}: kernel {ms:.3f} ms; equal in every "
-                  f"field, twice", flush=True)
+            print(f"{label} launch {i}{where} {kind} {name}: kernel {ms:.3f} ms"
+                  + ("; equal in every field, twice" if check_plain else ""), flush=True)
             tot = totals[name][kind]
             tot[0] += ms
             tot[1] += bound_ms
             tot[2] += 1
+            if name_of:
+                grp = per_table[(name, name_of(bvh), kind)]
+                grp[0] += ms
+                grp[1] += bound_ms
+                grp[2] += 1
     for name, per_kind in totals.items():
         print(f"{label} frame, {name}: " + "; ".join(
-            f"{kind} {ms:.3f} ms over {n} launches against a bound of {b:.4f} ms"
+            f"{kind} {ms:.3f} ms over {n} launches"
+            + (f" against a bound of {b:.4f} ms" if count else "")
             for kind, (ms, b, n) in per_kind.items()), flush=True)
+    for (name, table, kind), (ms, b, n) in sorted(per_table.items()):
+        print(f"{label} frame, {name} over the {table} table: {kind} {ms:.3f} ms over {n} "
+              f"launches" + (f" against a bound of {b:.4f} ms" if count else ""), flush=True)
     print(f"{label} frame: replayed in {time.perf_counter() - t0:.1f} s", flush=True)
     return {name: {kind: tuple(v) for kind, v in per_kind.items()}
             for name, per_kind in totals.items()}
@@ -441,6 +545,13 @@ def lap(phase: str, since: float) -> float:
     now = time.perf_counter()
     print(f"[time] {phase}: {now - since:.1f} s", flush=True)
     return now
+
+
+def allocator() -> tuple[int, int]:
+    """The caching allocator's ``cudaMalloc`` calls so far and the bytes it
+    holds reserved now."""
+    stats = torch.cuda.memory_stats()
+    return stats.get("segment.all.allocated", 0), stats.get("reserved_bytes.all.current", 0)
 
 
 def launch_counts(kernels) -> dict:
@@ -543,6 +654,101 @@ def profile_frame(render, untraced_ms, save_dir, trace_name="frame_trace.json"):
         print(f"[profile] {us / 1e3:9.3f} ms {n:5d}x  {name[:110]}", flush=True)
     if save_dir is not None:
         prof.export_chrome_trace(str(save_dir / trace_name))
+
+
+def time_sorts(render) -> list[float]:
+    """Run ``render()`` (one frame) with CUDA events around every call of
+    ``ops.reorder.sort_wavefront`` (the keys, the stable sort and every
+    column's gather); returns each call's ms, read after the frame."""
+    from vulkanraytracing_torch.ops import reorder
+
+    events = []
+    sort = reorder.sort_wavefront
+
+    def timed_sort(*a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sort(*a)
+        end.record()
+        events.append((start, end))
+        return out
+
+    reorder.sort_wavefront = timed_sort
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        reorder.sort_wavefront = sort
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def attribute_frame(render, spans: dict, label: str) -> None:
+    """Run ``render()`` (one frame) under ``torch.profiler`` with host and
+    device activity, each function of ``spans`` ({name: (module,
+    attribute)}) wrapped in a ``record_function`` range, and print each
+    range's calls and the device time of the kernels launched inside it
+    (nested ranges are inside their parents'), then the traversal
+    kernels' device time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for name, (module, attr) in spans.items():
+        fn = getattr(module, attr)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            with record_function(_name):
+                return _fn(*a, **k)
+
+        saved.append((module, attr, fn))
+        setattr(module, attr, wrapped)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render()
+            torch.cuda.synchronize()
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+    for name in spans:
+        rows = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+        device_us = sum(getattr(e, "device_time_total", 0.0) or e.cuda_time_total for e in rows)
+        print(f"{label} span {name}: {len(rows)} calls, device {device_us / 1e3:.3f} ms of "
+              "PyTorch kernels", flush=True)
+    # the traversal kernels are launched through ctypes, which the profiler
+    # does not nest under the ranges: their time by kernel name
+    ours = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "traverse_kernel" in e.name:
+            key = e.name.split("(")[0].removeprefix("void ")
+            ours[key][0] += e.time_range.elapsed_us()
+            ours[key][1] += 1
+    for name, (us, n) in sorted(ours.items()):
+        print(f"{label} kernel {name}: {n} launches, device {us / 1e3:.3f} ms", flush=True)
+
+
+def frames_alike(name, img, rays, ref_img, ref_rays, exact: bool) -> None:
+    """A frame against another from the same state: ``exact`` asks for the
+    image and ray count bit for bit; otherwise the packet kernels' tie
+    gate (``FRAME_RAY_TOL``, ``FRAME_PIXEL_SHARE``)."""
+    differ = (img != ref_img).any(dim=-1)
+    far = ((img - ref_img).abs() > 1.0 / 255.0 + 1e-6).any(dim=-1)
+    print(f"{name}: rays {rays} vs {ref_rays}; {int(differ.sum())} pixels differ, "
+          f"{int(far.sum())} by more than 1/255", flush=True)
+    if exact:
+        check(not bool(differ.any()) and rays == ref_rays, f"{name}: bit-equal")
+    else:
+        check(abs(rays - ref_rays) <= FRAME_RAY_TOL * ref_rays
+              and float(far.float().mean()) <= FRAME_PIXEL_SHARE, f"{name}: within the tie gate")
+
+
+def timed_frame(render):
+    """(render()'s result, its ms by the host clock, synchronized before
+    and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def main() -> int:
@@ -702,11 +908,31 @@ def main() -> int:
     if args.save_dir is not None:
         args.save_dir.mkdir(parents=True, exist_ok=True)
         np.save(args.save_dir / "main_frame.npy", img[::4, ::4].cpu().numpy())
+    # frame 0 again with the wavefront sort off: the very same image
+    with NoSort():
+        (ref, ref_stats), ms = timed_frame(
+            lambda: render_frame(v1, cfg, camera, create_render_state(cfg, device)))
+    frames_alike(f"[5 main] frame 0 under VRT_DEBUG_NO_SORT=1 ({ms:.1f} ms) against "
+                 "the sorted frame 0", ref.accumulation, int(ref_stats.rays), *first_frame,
+                 exact=True)
+    sorts = time_sorts(lambda: render_frame(v1, cfg, camera, state))
+    print(f"[5 main] wavefront sort: {len(sorts)} calls a frame, "
+          + " / ".join(f"{x:.3f}" for x in sorts) + f" ms, {sum(sorts):.3f} ms in all",
+          flush=True)
     profile_frame(lambda: render_frame(v1, cfg, camera, state),
                   sum(frame_ms) / len(frame_ms), args.save_dir)
-    # one more frame with every traversal launch recorded, then each alone
+    # one more frame with every traversal launch recorded, then each alone;
+    # and an unsorted frame's launches, timed only
     calls = record_frame(lambda: render_frame(v1, cfg, camera, state))
     in_frame = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[5 replay]")
+    with NoSort():
+        calls = record_frame(lambda: render_frame(v1, cfg, camera, state))
+    unsorted = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[5 replay unsorted]",
+                      check_plain=False, count=False)
+    in_frame_unsorted = dict(unsorted)
+    print("[5 main] BVH8 in frame, sorted / unsorted: " + "; ".join(
+        f"{kind} {in_frame['bvh8'][kind][0]:.3f} / {unsorted['bvh8'][kind][0]:.3f} ms"
+        for kind in ("closest", "any")), flush=True)
     del calls
     phase_start = lap("5 main", phase_start)
 
@@ -754,8 +980,8 @@ def main() -> int:
                  camera=CameraConfig(**BENCH_CAMERA, aspect_ratio=1920 / 1080))
 
     def script(frame):
-        """Frame 0 builds, 1-4 move, 5 holds still, later frames move."""
-        return animation(frame if frame <= 4 else 4 if frame == 5 else frame - 1)
+        """Frame 0 builds, 1-2 move, 3 holds still, later frames move."""
+        return animation(frame if frame <= 2 else 2 if frame == 3 else frame - 1)
 
     # The Engine refits through accel.tlas.refit_tlas: CUDA events around
     # each call time it on the device's clock with no synchronization
@@ -785,7 +1011,7 @@ def main() -> int:
     tw.LAUNCHES.clear()
     tw2.LAUNCHES.clear()
     moving_ms = []
-    for frame in range(6):
+    for frame in range(4):
         before8, before2 = dict(tw.LAUNCHES), dict(tw2.LAUNCHES)
         n_refits, rays0 = len(refit_events), eng.total_rays
         torch.cuda.synchronize()
@@ -798,10 +1024,10 @@ def main() -> int:
         n.update({k: tw2.LAUNCHES[k] - before2.get(k, 0) for k in ("closest2", "any2")})
         check(n["closest2"] >= 4 and n["any2"] >= 4 and n["closest"] == 0 and n["any"] == 0,
               f"dynamic frame {frame}: launches {n}")
-        moved = 1 <= frame <= 4
+        moved = 1 <= frame <= 2
         check((len(refit_events) > n_refits) == moved, f"dynamic frame {frame}: refit")
         spp = eng.state.accum_index
-        check(spp == (2 if frame == 5 else 1), f"dynamic frame {frame}: accum_index {spp}")
+        check(spp == (2 if frame == 3 else 1), f"dynamic frame {frame}: accum_index {spp}")
         kind_of = "build" if frame == 0 else "moving" if moved else "static"
         refit_txt = (f"refit {refit_events[-1][0].elapsed_time(refit_events[-1][1]):.2f} "
                      "ms, " if moved else "")
@@ -811,7 +1037,7 @@ def main() -> int:
               f"bvh8 closest {n['closest']}, any {n['any']}", flush=True)
         if moved:
             moving_ms.append(ms)
-        if frame == 4:
+        if frame == 2:
             moved_img = eng.state.accumulation.clone()
     launches.update({k: n for k, n in launch_counts(kernels).items() if k.startswith("bvh2")})
     tlas.refit_tlas = refit
@@ -824,12 +1050,12 @@ def main() -> int:
 
     # the oracle: a from-scratch LBVH at the last move's transforms renders
     # the refitted frame bit for bit (a refit changes tree quality, never hits)
-    geom, ref_bvh = build_bvh(tlas.world_geometry(inst, transforms(4)))
+    geom, ref_bvh = build_bvh(tlas.world_geometry(inst, transforms(2)))
     ref, _ = render_frame(eng.scene._replace(geometry=geom, bvh=ref_bvh), cfg,
                           Camera(cfg.camera).to_device(device, cfg.reverse_depth),
                           create_render_state(cfg, device))
     differ = int((ref.accumulation != moved_img).any(dim=-1).sum())
-    print(f"[7 dynamic] frame 4 over the refitted TLAS against a from-scratch "
+    print(f"[7 dynamic] frame 2 over the refitted TLAS against a from-scratch "
           f"LBVH: {differ} pixels differ", flush=True)
     check(differ == 0, "refitted frame bit-equal to the rebuilt one")
     if args.save_dir is not None:
@@ -877,10 +1103,12 @@ def main() -> int:
         for frame in range(2):
             before = launch_counts(kernels)
             torch.cuda.synchronize()
+            mallocs, reserved = allocator()
             t0 = time.perf_counter()
             state, stats = render_frame(v1, cfg, main_camera, state)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            mallocs_after, reserved_after = allocator()
             rays = int(stats.rays)
             n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
             check(n[f"{name}_closest"] >= 4 and n[f"{name}_any"] >= 4
@@ -888,21 +1116,50 @@ def main() -> int:
                   f"{name} frame {frame}: launches {n}")
             print(f"[8 packet] {mode.name} frame {frame}: {ms:.1f} ms, {rays} rays, "
                   f"{rays / ms / 1e3:.2f} Mrays/s; launches "
-                  + ", ".join(f"{k} {c}" for k, c in n.items()), flush=True)
+                  + ", ".join(f"{k} {c}" for k, c in n.items())
+                  + f"; {mallocs_after - mallocs} cudaMalloc calls, reserve "
+                  f"{reserved / 2**30:.2f} -> {reserved_after / 2**30:.2f} GiB", flush=True)
             if frame == 0:
                 img = state.accumulation
                 frame_gate(mode.name, img, rays, ref_img, ref_rays)
+                packet_first = (img.clone(), rays)
                 if args.save_dir is not None:
                     np.save(args.save_dir / f"{name}_frame.npy", img[::4, ::4].cpu().numpy())
         launches.update({k: c for k, c in launch_counts(kernels).items() if k.startswith(name)})
+        if name == "subpacket":
+            # frame 0 again with the wavefront sort off
+            with NoSort():
+                (ref, ref_stats), ms = timed_frame(lambda: render_frame(
+                    v1, cfg, main_camera, create_render_state(cfg, device)))
+            frames_alike(f"[8 packet] {mode.name} frame 0 under VRT_DEBUG_NO_SORT=1 "
+                         f"({ms:.1f} ms) against the sorted frame 0", ref.accumulation,
+                         int(ref_stats.rays), *packet_first, exact=False)
 
     # one more BVH_SUBPACKET frame with every traversal launch recorded, then
-    # each alone through both packet kernels, over the v1 tree's records
+    # each alone through both packet kernels, over the v1 tree's records:
+    # at 1920x1080 kernel ms and bounds (sorted, then an unsorted frame's
+    # kernel ms), and at 480x270 (1/16 of the rays) kernel = plain version
+    # on every launch
+    packet_modules = {name: kernels[name][0] for name in packet}
+    records = operator.attrgetter("records")
     cfg = main_cfg.replace(traversal=TraversalMode.BVH_SUBPACKET)
     state = create_render_state(cfg, device)
     calls = record_frame(lambda: render_frame(v1, cfg, main_camera, state))
-    in_frame.update(replay({name: kernels[name][0] for name in packet}, tw2, tw2.get_table2,
-                           operator.attrgetter("records"), calls, "[8 replay]"))
+    in_frame.update(replay(packet_modules, tw2, tw2.get_table2, records, calls, "[8 replay]",
+                           check_plain=False))
+    with NoSort():
+        calls = record_frame(lambda: render_frame(v1, cfg, main_camera, state))
+    unsorted = replay(packet_modules, tw2, tw2.get_table2, records, calls,
+                      "[8 replay unsorted]", check_plain=False, count=False)
+    in_frame_unsorted.update(unsorted)
+    for name in packet:
+        print(f"[8 packet] {name} in frame, sorted / unsorted: " + "; ".join(
+            f"{kind} {in_frame[name][kind][0]:.3f} / {unsorted[name][kind][0]:.3f} ms"
+            for kind in ("closest", "any")), flush=True)
+    small = cfg.replace(width=480, height=270)
+    calls = record_frame(lambda: render_frame(v1, small, Camera(small.camera).to_device(device),
+                                              create_render_state(small, device)))
+    replay(packet_modules, tw2, tw2.get_table2, records, calls, "[8 replay 480x270]")
     del calls
 
     # the plain packet backend (TraversalMode.BVH, no kernel of its own):
@@ -925,7 +1182,127 @@ def main() -> int:
           f"{rays / ms / 1e3:.2f} Mrays/s; no kernel launched", flush=True)
     frame_gate("BVH (1 bounce)", state.accumulation, rays, ref.accumulation,
                int(ref_stats.rays))
-    lap("8 packet", phase_start)
+    phase_start = lap("8 packet", phase_start)
+
+    # -- 9. the real workload -------------------------------------------------
+    from vulkanraytracing_torch.ops import reorder, trace
+    from vulkanraytracing_torch.pt import integrator, surface
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real = sponza_like_scene(262144, workload="real", device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    real = build_scene_bvh(real, builder="sah")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    alpha = real.alpha
+    n_cut = alpha.geometry.num_triangles
+    check(n_cut > 0 and int(real.geometry.alpha_test.sum()) == n_cut, "real scene cutouts")
+    pano = real.environment.panorama
+    print(f"[9 real] real scene: {real.geometry.num_triangles} triangles, {n_cut} "
+          f"alpha-tested (a subset tree of {alpha.bvh.nodes8.shape[0]} BVH8 nodes, stack "
+          f"{bvh8._worst_case_stack(alpha.bvh.child8.cpu().numpy())}); texture pool of "
+          f"{real.textures.count} textures, {real.textures.max_levels} levels, "
+          f"{real.textures.nbytes / 2**20:.2f} MiB; panorama {pano.shape[0]}x{pano.shape[1]}; "
+          f"scene {t1 - t0:.2f} s, SAH build + BVH8 collapse + cutout subset "
+          f"{t2 - t1:.2f} s", flush=True)
+    tables = {id(real.bvh): "main", id(alpha.opaque_bvh): "opaque view", id(alpha.bvh): "subset"}
+
+    def name_of(bvh):
+        return tables.get(id(bvh), "other")
+
+    cfg = main_cfg
+    state = create_render_state(cfg, device)
+    for module, _ in kernels.values():
+        module.LAUNCHES.clear()
+    real_ms = []
+    for frame in range(3):
+        before = launch_counts(kernels)
+        with TableCounts(name_of) as by_table:
+            (state, stats), ms = timed_frame(
+                lambda: render_frame(real, cfg, main_camera, state))
+        real_ms.append(ms)
+        rays = int(stats.rays)
+        n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+        split = by_table.counts
+        check(not any(c for k, c in n.items() if not k.startswith("bvh8")),
+              f"real frame {frame}: other kernels launched: {n}")
+        check(set(t for t, _ in split) == {"opaque view", "subset"},
+              f"real frame {frame}: tables traversed {dict(split)}")
+        for kind in ("closest", "any"):
+            check(n[f"bvh8_{kind}"] == sum(c for (_, k), c in split.items() if k == kind),
+                  f"real frame {frame}: {kind} launches {n} by table {dict(split)}")
+        check(split[("opaque view", "closest")] >= 4 and split[("opaque view", "any")] >= 4
+              and split[("subset", "closest")] >= 8,
+              f"real frame {frame}: launches by table {dict(split)}")
+        print(f"[9 real] frame {frame}: {ms:.1f} ms, {rays} rays, {rays / ms / 1e3:.2f} "
+              f"Mrays/s; launches bvh8 closest {n['bvh8_closest']} (opaque view "
+              f"{split[('opaque view', 'closest')]}, subset {split[('subset', 'closest')]}), "
+              f"any {n['bvh8_any']} (opaque view {split[('opaque view', 'any')]}, subset "
+              f"{split[('subset', 'any')]})", flush=True)
+        if frame == 0:
+            real_first = (state.accumulation.clone(), rays)
+    real_launches = {k: c for k, c in launch_counts(kernels).items() if k.startswith("bvh8")}
+    img = state.accumulation
+    check(tuple(img.shape) == (1080, 1920, 3) and bool(torch.isfinite(img).all())
+          and float(img.max()) > 0.0, "real image: shape, finite, not black")
+    print(f"[9 real] image 1080x1920: mean {float(img.mean()):.4f}, max "
+          f"{float(img.max()):.4f}", flush=True)
+    if args.save_dir is not None:
+        np.save(args.save_dir / "real_frame.npy", img[::4, ::4].cpu().numpy())
+    profile_frame(lambda: render_frame(real, cfg, main_camera, state),
+                  sum(real_ms[1:]) / len(real_ms[1:]), args.save_dir, "real_frame_trace.json")
+    attribute_frame(lambda: render_frame(real, cfg, main_camera, state), {
+        "shading: material unpack": (integrator, "unpack_material"),
+        "shading: texture sampling": (surface, "sample_pool"),
+        "trace_closest": (trace, "trace_closest"),
+        "trace_any": (trace, "trace_any"),
+        "cutout subset phase": (trace, "_closest_alpha_subset"),
+        "alpha rounds (_resolve_alpha)": (trace, "_resolve_alpha"),
+        "_hit_alpha": (trace, "_hit_alpha"),
+        "_hit_alpha: texture sampling": (trace, "sample_pool"),
+        "wavefront sort": (reorder, "sort_wavefront"),
+    }, "[9 real]")
+
+    # frame 0 again with the sort off
+    with NoSort():
+        (ref, ref_stats), ms = timed_frame(lambda: render_frame(
+            real, cfg, main_camera, create_render_state(cfg, device)))
+    frames_alike(f"[9 real] frame 0 under VRT_DEBUG_NO_SORT=1 ({ms:.1f} ms) against the "
+                 "sorted frame 0", ref.accumulation, int(ref_stats.rays), *real_first,
+                 exact=True)
+
+    # one more frame with every traversal launch recorded, then each alone
+    # over its table (the opaque view's or the subset's)
+    calls = record_frame(lambda: render_frame(real, cfg, main_camera, state))
+    real_in_frame = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[9 replay]",
+                           name_of=name_of)["bvh8"]
+    del calls
+
+    # the kernels against brute force with the alpha re-trace, at the
+    # 20,000-triangle target
+    small_real = build_scene_bvh(sponza_like_scene(20000, workload="real", device=device),
+                                 builder="sah")
+    small = Config(width=128, height=72, max_bounce_count=4,
+                   camera=CameraConfig(**BENCH_CAMERA, aspect_ratio=128 / 72))
+    small_cam = Camera(small.camera).to_device(device)
+    out = {}
+    for mode in (TraversalMode.BVH_KERNEL, TraversalMode.BRUTE_FORCE):
+        mcfg = small.replace(traversal=mode)
+        (st, st_stats), ms = timed_frame(lambda: render_frame(
+            small_real, mcfg, small_cam, create_render_state(mcfg, device)))
+        out[mode] = (st.accumulation, int(st_stats.rays), ms)
+    (a, ra, ma), (b, rb, mb) = out[TraversalMode.BVH_KERNEL], out[TraversalMode.BRUTE_FORCE]
+    far = float(((a - b).abs() > 1.0 / 255.0 + 1e-6).float().mean())
+    print(f"[9 real] 128x72 at the 20,000-triangle target ({small_real.geometry.num_triangles} "
+          f"triangles, {small_real.alpha.geometry.num_triangles} alpha-tested): BVH_KERNEL "
+          f"{ma:.1f} ms, {ra} rays; BRUTE_FORCE {mb:.1f} ms, {rb} rays; {far:.2e} of the "
+          f"channels more than 1/255 apart, {int((a != b).any(dim=-1).sum())} pixels differ",
+          flush=True)
+    check(far <= 1e-3 and bool(torch.isfinite(a).all()) and float(a.max()) > 0.0,
+          "real 128x72: BVH_KERNEL against BRUTE_FORCE")
+    lap("9 real", phase_start)
 
     lines = []
     for key, (err, ms, plain_ms) in result.items():
@@ -943,6 +1320,16 @@ def main() -> int:
                              frame_launches=f_launches)
             in_frame_txt = (f"; {f_ms:.3f} ms over the {f_launches} launches of one "
                             f"replayed frame (bound {f_bound_ms:.4f} ms)")
+        if name in in_frame_unsorted:
+            lines[-1]["frame_ms_unsorted"] = in_frame_unsorted[name][kind][0]
+            in_frame_txt += f", {in_frame_unsorted[name][kind][0]:.3f} ms unsorted"
+        if name == "bvh8":
+            r_ms, r_bound_ms, r_launches = real_in_frame[kind]
+            lines[-1].update(real_launches=real_launches[key], real_frame_ms=r_ms,
+                             real_frame_bound_ms=r_bound_ms, real_frame_launches=r_launches)
+            in_frame_txt += (f"; real workload: {real_launches[key]} launches in its frames, "
+                             f"{r_ms:.3f} ms over the {r_launches} launches of one replayed "
+                             f"frame (bound {r_bound_ms:.4f} ms)")
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
               f"in the frames of its path{in_frame_txt}", flush=True)

@@ -279,3 +279,74 @@ def test_cornell_through_kernel_matches_brute_force(cuda):
         scene, cfg.replace(traversal=TraversalMode.BRUTE_FORCE), cam, 2)
     assert rays_k == rays_b
     assert torch.equal(kernel.accumulation, brute.accumulation)
+
+
+@pytest.fixture(scope="module")
+def real_scene():
+    """The real workload at its 20,000-triangle target on the card, with
+    its opaque view and cutout subset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the traversal kernel has no CPU mode")
+    from vulkanraytracing_torch.scene.procedural import sponza_like_scene
+
+    return build_scene_bvh(sponza_like_scene(20000, workload="real", device="cuda"),
+                           builder="sah")
+
+
+def _hall_rays(device, n=8192):
+    gen = np.random.default_rng(6)
+    o = gen.uniform([-19.0, 0.2, -9.5], [19.0, 7.5, 9.5], (n, 3)).astype(np.float32)
+    d = gen.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full((n,), 1e3, np.float32)
+    t_max[::7] = 0.0
+    return [torch.from_numpy(x).to(device) for x in (o, d, np.full(n, 1e-3, np.float32), t_max)]
+
+
+@pytest.mark.parametrize("table", ["opaque view", "subset"])
+@pytest.mark.parametrize("cull", [True, False])
+def test_split_closest_launches_match_plain(real_scene, table, cull):
+    """The BVH8 kernel over the real scene's opaque view and its cutout
+    subset (each with its own packed table) against the plain version."""
+    bvh = real_scene.alpha.opaque_bvh if table == "opaque view" else real_scene.alpha.bvh
+    t8 = tw.get_table8(bvh)
+    rays = _hall_rays(real_scene.geometry.v0.device)
+    kernel = tw.closest_cuda(t8, *rays, cull_backface=cull)
+    plain = tw.closest_plain(t8, *rays, cull_backface=cull)
+    assert int(plain.is_hit.sum()) > (100 if table == "subset" else 4000)
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("table", ["opaque view", "subset"])
+def test_split_any_launches_match_plain(real_scene, table):
+    bvh = real_scene.alpha.opaque_bvh if table == "opaque view" else real_scene.alpha.bvh
+    t8 = tw.get_table8(bvh)
+    rays = _hall_rays(real_scene.geometry.v0.device)
+    assert torch.equal(tw.any_cuda(t8, *rays), tw.any_plain(t8, *rays))
+
+
+def test_opaque_view_has_no_cutout_candidates(real_scene):
+    """Cutouts are no candidates in the opaque view's table (flags & 6 == 0
+    on every alpha-tested triangle), and the main tree keeps them."""
+    opaque = tw.get_table8(real_scene.alpha.opaque_bvh).tri_meta
+    main = tw.get_table8(real_scene.bvh).tri_meta
+    slots = opaque[:, 1] >= 0
+    cut = real_scene.geometry.alpha_test[opaque[:, 1].clamp_min(0).long()] & slots
+    assert int(cut.sum()) == real_scene.alpha.geometry.num_triangles
+    assert not bool(((opaque[:, 0] & 6) != 0)[cut].any())
+    assert bool(((main[:, 0] & 4) != 0)[cut].all())
+
+
+def test_real_frame_on_the_card_sorted_equals_unsorted(real_scene, monkeypatch):
+    """A 64x36 real frame through the kernels: the wavefront sort must not
+    change it, in the image or the ray count."""
+    cfg = Config(width=64, height=36, max_bounce_count=4, camera=CameraConfig(
+        position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0), aspect_ratio=64 / 36))
+    cam = Camera(cfg.camera).to_device("cuda")
+    sorted_, rays_s = render_progressive(real_scene, cfg, cam, 1)
+    monkeypatch.setenv("VRT_DEBUG_NO_SORT", "1")
+    unsorted, rays_u = render_progressive(real_scene, cfg, cam, 1)
+    assert rays_s == rays_u
+    assert torch.equal(sorted_.accumulation, unsorted.accumulation)
+    assert float(sorted_.accumulation.max()) > 0.0

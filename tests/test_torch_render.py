@@ -12,6 +12,13 @@ other side and change a pixel.  Within the port, BVH8 and brute force
 must give the very same image and ray count.  Each packet backend (BVH,
 BVH_SUBPACKET, BVH_SHARED) is held to the same gate against the JAX
 package's render in the same mode.
+
+The real workload (textures, alpha-tested foliage, an HDR sky) at its
+20,000-triangle target: the port's ``BVH_KERNEL`` frame, 64x36, 4 bounces,
+against the JAX package's ``BVH`` frame (its XLA packet traversal); gate:
+99.9% of channels within 1/255 and equal ray counts.  The wavefront sort
+only permutes rays, so a frame under ``VRT_DEBUG_NO_SORT`` must equal the
+sorted frame bit for bit, for the v1 and the real workload.
 """
 
 import jax
@@ -37,6 +44,7 @@ from vulkanraytracing_tpu.pt.render import create_render_state as j_state
 from vulkanraytracing_tpu.pt.render import render_frame as j_render
 from vulkanraytracing_tpu.scene.camera import Camera as JCamera
 from vulkanraytracing_tpu.scene.procedural import cornell_box_scene
+from vulkanraytracing_tpu.scene.procedural import sponza_like_scene as j_sponza
 
 torch.set_num_threads(1)
 
@@ -118,3 +126,59 @@ def test_one_sample_image_is_finite():
     assert img.shape == (16, 24, 3)
     assert np.isfinite(img).all() and img.max() > 0.0
     assert rays >= 24 * 16 * 2  # primary + point-light sphere rays at least
+
+
+HALL = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0))
+REAL_SIZE = (64, 36)
+
+
+@pytest.fixture(scope="module")
+def real_scenes():
+    """The real workload at its 20,000-triangle target (SAH build, BVH8
+    collapse, cutout subset) in the JAX package, and carried across."""
+    js = j_build(j_sponza(20000, workload="real"), builder="sah")
+    return js, scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
+
+
+def _render_hall(render, scene, cfg_cls, cam_cls, cam_to, state, mode, width, height):
+    cfg = cfg_cls(width=width, height=height, max_bounce_count=4, traversal=mode,
+                  camera=cam_cls(**HALL, aspect_ratio=width / height))
+    out, stats = render(scene, cfg, cam_to(cfg), state(cfg))
+    return out.accumulation, stats.rays
+
+
+def test_real_scene_matches_jax(real_scenes):
+    js, ts = real_scenes
+    w, h = REAL_SIZE
+    want, want_rays = _render_hall(j_render, js, JConfig, JCameraConfig,
+                                   lambda c: JCamera(c.camera).to_device(), j_state,
+                                   JMode.BVH, w, h)
+    got, rays = _render_hall(t_render, ts, TConfig, TCameraConfig,
+                             lambda c: TCamera(c.camera).to_device("cpu"),
+                             lambda c: t_state(c, "cpu"), TMode.BVH_KERNEL, w, h)
+    got, want = got.numpy(), np.asarray(want)
+    assert got.shape == (h, w, 3) and np.isfinite(got).all() and got.mean() > 0.05
+    close = np.abs(got - want) <= 1.0 / 255.0 + 1e-6
+    assert close.mean() >= 0.999, f"{close.mean():.5f} of channels within 1/255"
+    assert int(rays) == int(float(want_rays))
+
+
+@pytest.mark.parametrize("workload", ["v1", "real"])
+def test_sorted_frame_equals_unsorted(workload, real_scenes, monkeypatch):
+    """The port's frame with the wavefront sort equals its frame under
+    VRT_DEBUG_NO_SORT, bit for bit, and so does the ray count."""
+    if workload == "real":
+        scene = real_scenes[1]
+    else:
+        scene = t_build(sponza_like_scene(8000, device="cpu"), builder="sah")
+    frames = []
+    for unsorted in (False, True):
+        if unsorted:
+            monkeypatch.setenv("VRT_DEBUG_NO_SORT", "1")
+        frames.append(_render_hall(t_render, scene, TConfig, TCameraConfig,
+                                   lambda c: TCamera(c.camera).to_device("cpu"),
+                                   lambda c: t_state(c, "cpu"), TMode.BVH_KERNEL,
+                                   *REAL_SIZE))
+    (a, ra), (b, rb) = frames
+    assert torch.equal(a, b) and int(ra) == int(rb)
+    assert float(a.max()) > 0.0

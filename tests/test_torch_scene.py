@@ -28,6 +28,7 @@ SCENES = {  # the port's scenes are asked for on the CPU (device="cpu")
     "cornell": lambda mod, **kw: mod.cornell_box_scene(**kw),
     "soup960": lambda mod, **kw: mod.triangle_soup_scene(960, **kw),
     "sponza40k": lambda mod, **kw: mod.sponza_like_scene(40000, **kw),
+    "real4k": lambda mod, **kw: mod.sponza_like_scene(4000, workload="real", **kw),
 }
 
 BVH_FIELDS = ("nodes", "child_index", "tris", "tri_flags", "tri_order",
@@ -53,6 +54,10 @@ def test_scene_arrays_equal(name):
         _eq(ts.point_lights.position, js.point_lights.position, "lights.position")
         _eq(ts.point_lights.color, js.point_lights.color, "lights.color")
     _eq(ts.environment.panorama, js.environment.panorama, "panorama")
+    assert (ts.textures is None) == (js.textures is None)
+    if ts.textures is not None:
+        for field in ts.textures._fields:
+            _eq(getattr(ts.textures, field), getattr(js.textures, field), f"textures.{field}")
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -88,27 +93,48 @@ def test_camera_matches():
 
 
 def test_unported_features_raise():
-    """The real workload is not ported; an unknown builder is refused
-    (``builder="lbvh"``, the default, is ported)."""
-    with pytest.raises(NotImplementedError):
-        tproc.sponza_like_scene(4000, workload="real", device="cpu")
+    """An unknown workload and an unknown builder are refused (the v1 and
+    real workloads and ``builder="lbvh"``, the default, are ported)."""
+    with pytest.raises(ValueError, match="workload"):
+        tproc.sponza_like_scene(4000, workload="unreal", device="cpu")
     with pytest.raises(ValueError, match="builder"):
         t_build(tproc.cornell_box_scene(device="cpu"), builder="median")
 
 
 def test_textures_and_alpha_refused_where_scenes_are_made():
-    """Textures and alpha tests are refused once per scene (made, carried
-    across or given a BVH), so the frame loop needs no check."""
+    """Textures and alpha tests are carried wherever a static scene is made
+    (made, carried across or given a BVH, which attaches the cutout
+    subset); the Engine, whose scenes are built on the device, refuses a
+    textured scene."""
+    from vulkanraytracing_torch.app.engine import Engine
+    from vulkanraytracing_torch.config import Config as TConfig
+
     tri = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
-    with pytest.raises(NotImplementedError, match="alpha"):
-        make_trace_geometry(tri, [[0, 1, 2]], alpha_test=True, device="cpu")
+    geom = make_trace_geometry(tri, [[0, 1, 2]], alpha_test=True, opaque=False, device="cpu")
+    assert bool(geom.alpha_test.all()) and not bool(geom.opaque.any())
     js = jproc.cornell_box_scene()
     alpha = js.geometry._replace(alpha_test=np.ones_like(np.asarray(js.geometry.alpha_test)))
-    with pytest.raises(NotImplementedError, match="alpha"):
-        scene_from_numpy(jax.tree.map(np.asarray, js._replace(geometry=alpha)), device="cpu")
+    carried = scene_from_numpy(jax.tree.map(np.asarray, js._replace(geometry=alpha)),
+                               device="cpu")
+    assert bool(carried.geometry.alpha_test.all()) and carried.alpha is None
     ts = tproc.cornell_box_scene(device="cpu")
     flagged = ts.geometry._replace(alpha_test=torch.ones_like(ts.geometry.alpha_test))
-    with pytest.raises(NotImplementedError, match="alpha"):
-        t_build(ts._replace(geometry=flagged))
+    built = t_build(ts._replace(geometry=flagged))
+    assert built.alpha.geometry.num_triangles == ts.geometry.num_triangles
+    assert not bool((built.alpha.opaque_bvh.tri_flags & 4).any())
+    assert t_build(ts).alpha is None
     with pytest.raises(NotImplementedError, match="textured"):
-        t_build(ts._replace(textures=object()))
+        Engine(TConfig(), ts._replace(textures=object()), device="cpu")
+
+
+def test_default_materials_match_jax():
+    from vulkanraytracing_torch.scene.types import default_materials as t_default
+    from vulkanraytracing_tpu.scene.types import default_materials as j_default
+
+    kw = dict(base_color=(0.8, 0.5, 0.2, 0.9), emission=(1.0, 2.0, 3.0, 1.0),
+              roughness=0.3, metallic=0.7)
+    for args in ({}, kw):
+        want, got = j_default(**args), t_default(**args, device="cpu")
+        assert got._fields == want._fields
+        for name, g, w in zip(got._fields, got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)

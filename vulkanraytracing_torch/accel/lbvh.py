@@ -36,10 +36,10 @@ from torch import Tensor
 
 from vulkanraytracing_torch.scene.types import (
     BVH,
+    AlphaScene,
     Scene,
     Topology,
     TraceGeometry,
-    check_supported,
 )
 
 # Max triangles per leaf (4 bits of the leaf code hold the count; the BVH8
@@ -347,23 +347,45 @@ def pad_nodes(nodes: Tensor, child_index: Tensor, num_tris: int):
     return nodes, child_index
 
 
-def build_scene_bvh(
-    scene: Scene, leaf_size: int = LEAF_SIZE, builder: str = "lbvh"
-) -> Scene:
-    """Permute the scene geometry into BVH order and attach its BVH with
-    the BVH8 collapse the 8-wide traversal kernel reads.
-
-    builder: "lbvh" (on-device, fast build) or "sah" (the native binned
-    SAH builder, higher-quality trees for static scenes)."""
-    check_supported(scene)
+def _build(geometry: TraceGeometry, leaf_size: int, builder: str):
+    """(geometry in BVH order, BVH with its 8-wide collapse)."""
     from vulkanraytracing_torch.accel.bvh8 import collapse_bvh8
 
     if builder == "sah":
         from vulkanraytracing_torch.accel.sah import build_bvh_sah
 
-        geometry, bvh = build_bvh_sah(scene.geometry, leaf_size)
+        geometry, bvh = build_bvh_sah(geometry, leaf_size)
     elif builder == "lbvh":
-        geometry, bvh = build_bvh(scene.geometry, leaf_size)
+        geometry, bvh = build_bvh(geometry, leaf_size)
     else:
         raise ValueError(f"builder must be 'lbvh' or 'sah', got {builder!r}")
-    return scene._replace(geometry=geometry, bvh=collapse_bvh8(bvh))
+    return geometry, collapse_bvh8(bvh)
+
+
+def build_scene_bvh(
+    scene: Scene, leaf_size: int = LEAF_SIZE, builder: str = "lbvh"
+) -> Scene:
+    """Permute the scene geometry into BVH order and attach its BVH with
+    the BVH8 collapse the 8-wide traversal kernel reads, and the cutout
+    subset (``_attach_alpha_set``) where the scene has alpha-tested
+    triangles.
+
+    builder: "lbvh" (on-device, fast build) or "sah" (the native binned
+    SAH builder, higher-quality trees for static scenes)."""
+    geometry, bvh = _build(scene.geometry, leaf_size, builder)
+    return _attach_alpha_set(scene._replace(geometry=geometry, bvh=bvh), leaf_size, builder)
+
+
+def _attach_alpha_set(scene: Scene, leaf_size: int, builder: str) -> Scene:
+    """Build the tree of the alpha-tested triangles alone
+    (``scene.types.AlphaScene``) and the main tree's opaque view, when the
+    scene has such triangles; ``ops.trace`` then splits every trace into an
+    opaque phase and a cheap cutout phase.  Reads the flags back once."""
+    at = scene.geometry.alpha_test
+    if not bool(at.any()):
+        return scene
+    alpha_idx = torch.nonzero(at).squeeze(1)
+    sub_geom, sub_bvh = _build(scene.geometry.take(alpha_idx), leaf_size, builder)
+    tri_map = alpha_idx[sub_bvh.tri_order.long()].to(torch.int32)
+    return scene._replace(alpha=AlphaScene(geometry=sub_geom, bvh=sub_bvh, tri_map=tri_map,
+                                           opaque_bvh=scene.bvh.opaque_view()))

@@ -57,6 +57,8 @@ class Engine:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device rendering is not ported yet")
+        if scene.textures is not None:
+            raise NotImplementedError("textured scenes in the Engine are not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.scene = scene.to(self.device)

@@ -2,7 +2,8 @@
 
 Counterpart of ``vulkanraytracing_tpu/config.py``.  Both render modes
 exist and the Engine toggles between them, but only path tracing draws:
-hybrid drawing, IBL sizes and anisotropic taps come with a later slice.
+hybrid drawing, IBL sizes and anisotropic taps (``hybrid_aniso_taps``)
+come with a later slice.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ class Config:
     tone_map_before_accumulation: bool = True
 
     point_light_radius: float = 0.05
+
+    # Alpha-tested (cutout) triangles: resolve the texture alpha test on
+    # material and visibility rays; False treats every cutout hit as opaque.
+    alpha_visibility: bool = True
 
     # the Engine's camera projection swaps z_near and z_far
     reverse_depth: bool = True

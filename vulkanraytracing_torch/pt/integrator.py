@@ -10,25 +10,34 @@ material rays only, the primary point-light sphere short-circuit).
 From bounce 1 on, point-light shadow rays are traced from the light
 toward the surface, as the JAX package does: the same segment, with the
 window [0, dist - RAY_MIN_T]; dead lanes get the inverted window
-[0, -1].  The JAX package's wavefront sort is not ported: it only permutes
-rays and restores pixel order, so the image does not depend on it.
+[0, -1].
+
+The wavefront sort (``ops.reorder``) runs on every bounce over a BVH
+unless the mode is ``BRUTE_FORCE`` or ``VRT_DEBUG_NO_SORT`` is set, as in
+the JAX package: the whole live state rides one stable permutation into
+coherence order.  Bounce 0's shadow rays are traced before the sort (in
+pixel-tile order their origins are already coherent); every later
+bounce's shadow rays ride the sort and are traced after it.  Each ray's
+slot rides too, and one scatter restores pixel order at the end.  Every
+step is per ray, so the sort must not change the image.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 from torch import Tensor
 
-from vulkanraytracing_torch.config import Config
+from vulkanraytracing_torch.config import Config, TraversalMode
 from vulkanraytracing_torch.core import math3d, rng
 from vulkanraytracing_torch.core.math3d import BIAS, EPSILON, RAY_MAX_T, RAY_MIN_T
 from vulkanraytracing_torch.env.panorama import sample_environment
-from vulkanraytracing_torch.ops import trace
+from vulkanraytracing_torch.ops import reorder, trace
 from vulkanraytracing_torch.ops.intersect import fetch_surface_attributes
 from vulkanraytracing_torch.pt import bsdf as bsdf_mod
-from vulkanraytracing_torch.pt.surface import unpack_material
+from vulkanraytracing_torch.pt.surface import texture_slots_used, unpack_material
 from vulkanraytracing_torch.scene.camera import CameraPT
 from vulkanraytracing_torch.scene.types import PointLights, Scene
 
@@ -134,6 +143,10 @@ def pathtrace(
     def full(value) -> Tensor:
         return torch.full((r,), value, dtype=f32, device=dev)
 
+    # the texture slots in use: read back once a call, before its work is
+    # queued, so the read waits for nothing of this frame
+    slots = None if scene.textures is None else texture_slots_used(scene.materials)
+
     s0, s1 = rng.pixel_seed(px, py, accum_index)
     o, d = primary_rays(camera, px, py, width, height, s0, s1)
     t_min = full(camera.z_near)
@@ -147,6 +160,15 @@ def pathtrace(
     throughput = torch.ones((r, 3), dtype=f32, device=dev)
     ray_pdf = torch.ones((r,), dtype=f32, device=dev)
     alive = valid.clone()
+    # each ray's original slot rides every permutation of the sort
+    ray_slot = torch.arange(r, device=dev)
+    do_sort = (
+        scene.bvh is not None
+        and cfg.traversal != TraversalMode.BRUTE_FORCE
+        # the sort only permutes rays and restores their order, so turning
+        # it off must not change the image: a debugging switch
+        and not os.environ.get("VRT_DEBUG_NO_SORT")
+    )
 
     if scene.has_point_lights:
         pl_t, pl_color = intersect_point_light_spheres(
@@ -173,7 +195,7 @@ def pathtrace(
         alive &= ~miss
 
         attrs = fetch_surface_attributes(geom, hit)
-        unpacked = unpack_material(scene, attrs)
+        unpacked = unpack_material(scene, attrs, slots=slots)
         surface, tbn = unpacked.surface, unpacked.tbn
         n_shading = tbn[..., 2]
 
@@ -244,37 +266,68 @@ def pathtrace(
         # dead rays get a zero-length window so traversal exits at once
         t_max = torch.where(alive, RAY_MAX_T, 0.0)
 
-        # visibility rays: gated by the pre-roulette aliveness
-        nee_alive = sh_tmax_sun > 0.0
-        if scene.has_point_lights:
-            if bounce == 0:
-                pl_o, pl_d, pl_tmax = shadow_origin, ldir, sh_tmax_pl
-                pl_tmin = full(RAY_MIN_T)
-            else:
-                pl_o = shadow_origin + ldir * sh_tmax_pl[:, None]
-                pl_d = -ldir
-                pl_tmax = torch.where(
-                    sh_tmax_pl > 0.0,
-                    torch.clamp_min(sh_tmax_pl - RAY_MIN_T, 0.0),
-                    -1.0,
+        def nee_trace(flip_pl: bool) -> tuple[Tensor, Tensor]:
+            """Trace the visibility rays of the current state (gated by the
+            pre-roulette aliveness); returns the irradiance with the
+            unshadowed contributions they pass added, and the ray count."""
+            nee_alive = sh_tmax_sun > 0.0
+            if scene.has_point_lights:
+                if flip_pl:
+                    pl_o = shadow_origin + ldir * sh_tmax_pl[:, None]
+                    pl_d = -ldir
+                    pl_tmax = torch.where(
+                        sh_tmax_pl > 0.0,
+                        torch.clamp_min(sh_tmax_pl - RAY_MIN_T, 0.0),
+                        -1.0,
+                    )
+                    pl_tmin = full(0.0)
+                else:
+                    pl_o, pl_d, pl_tmax = shadow_origin, ldir, sh_tmax_pl
+                    pl_tmin = full(RAY_MIN_T)
+                occ = trace.trace_any(
+                    scene, cfg,
+                    torch.cat([pl_o, shadow_origin]),
+                    torch.cat([pl_d, sun_d]),
+                    torch.cat([pl_tmin, full(RAY_MIN_T)]),
+                    torch.cat([pl_tmax, sh_tmax_sun]),
                 )
-                pl_tmin = full(0.0)
-            occ = trace.trace_any(
-                scene, cfg,
-                torch.cat([pl_o, shadow_origin]),
-                torch.cat([pl_d, sun_d]),
-                torch.cat([pl_tmin, full(RAY_MIN_T)]),
-                torch.cat([pl_tmax, sh_tmax_sun]),
-            )
-            occluded, sun_occluded = occ[:r], occ[r:]
-            rays_cast += 2 * nee_alive.sum()
-            irradiance += torch.where(occluded[:, None], 0.0, pl_contrib)
-        else:
-            sun_occluded = trace.trace_any(
-                scene, cfg, shadow_origin, sun_d, full(RAY_MIN_T), sh_tmax_sun
-            )
-            rays_cast += nee_alive.sum()
-        irradiance += torch.where(sun_occluded[:, None], 0.0, sun_contrib)
+                occluded, sun_occluded = occ[:r], occ[r:]
+                lit = irradiance + torch.where(occluded[:, None], 0.0, pl_contrib)
+                cast = rays_cast + 2 * nee_alive.sum()
+            else:
+                sun_occluded = trace.trace_any(
+                    scene, cfg, shadow_origin, sun_d, full(RAY_MIN_T), sh_tmax_sun
+                )
+                lit, cast = irradiance, rays_cast + nee_alive.sum()
+            return lit + torch.where(sun_occluded[:, None], 0.0, sun_contrib), cast
+
+        if bounce == 0:
+            irradiance, rays_cast = nee_trace(flip_pl=False)
+
+        if do_sort:
+            lo, hi = trace.root_bounds(scene.bvh)
+            core = (o, d, t_min, t_max, irradiance, throughput, ray_pdf,
+                    s0, s1, alive, valid, ray_slot)
+            if bounce == 0:
+                shadow_cols = ()
+            elif scene.has_point_lights:
+                shadow_cols = (shadow_origin, sh_tmax_sun, sun_contrib,
+                               ldir, sh_tmax_pl, pl_contrib)
+            else:
+                shadow_cols = (shadow_origin, sh_tmax_sun, sun_contrib)
+            out = reorder.sort_wavefront(o, d, t_min, t_max, lo, hi,
+                                         (*core, *shadow_cols))
+            (o, d, t_min, t_max, irradiance, throughput, ray_pdf,
+             s0, s1, alive, valid, ray_slot) = out[:12]
+            if bounce > 0:
+                if scene.has_point_lights:
+                    (shadow_origin, sh_tmax_sun, sun_contrib,
+                     ldir, sh_tmax_pl, pl_contrib) = out[12:]
+                else:
+                    shadow_origin, sh_tmax_sun, sun_contrib = out[12:]
+
+        if bounce > 0:
+            irradiance, rays_cast = nee_trace(flip_pl=True)
 
         if bounce + 1 < cfg.max_bounce_count:
             hit = trace.trace_closest(scene, cfg, o, d, t_min, t_max,
@@ -285,4 +338,8 @@ def pathtrace(
         color = math3d.tone_mapping(irradiance)
     else:
         color = irradiance
+    if do_sort:
+        # restore pixel order: ray_slot carried each ray's original index
+        # through every permutation, and the slots are unique
+        color = torch.empty_like(color).index_copy_(0, ray_slot, color)
     return color, TraceStats(rays=rays_cast)

@@ -15,15 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vulkanraytracing_torch.ops.texture import TexturePool
 from vulkanraytracing_torch.scene.camera import CameraPT
 from vulkanraytracing_torch.scene.types import (
     BVH,
+    AlphaScene,
     DirectLight,
-    Environment,
     Materials,
     PointLights,
     Scene,
     TraceGeometry,
+    make_environment,
 )
 
 
@@ -35,31 +37,45 @@ def _fields(cls, obj, device):
     return cls(**{name: _tensor(getattr(obj, name), device) for name in cls._fields})
 
 
+_BVH_FIELDS = ("nodes", "child_index", "tris", "tri_flags", "tri_order",
+               "nodes8", "child8", "tri_perm8")
+
+
+def _bvh(b, device) -> BVH:
+    """Port ``BVH`` from the JAX one's arrays (its probe cut, a TPU wave
+    device, is not carried)."""
+    return BVH(**{n: None if getattr(b, n) is None else _tensor(getattr(b, n), device)
+                  for n in _BVH_FIELDS})
+
+
 def scene_from_numpy(obj, device="cuda") -> Scene:
-    """Port ``Scene`` from a numpy-leaved scene with the JAX field names."""
-    if getattr(obj, "textures", None) is not None or getattr(obj, "alpha", None) is not None:
-        raise NotImplementedError("textured or alpha-tested scenes are not ported yet")
-    if np.any(obj.geometry.alpha_test):
-        raise NotImplementedError("alpha-tested geometry is not ported yet")
+    """Port ``Scene`` from a numpy-leaved scene with the JAX field names:
+    geometry, materials with their texture slots, the panorama, lights,
+    the BVH, the texture pool (less its footprint table, a TPU gather
+    device) and the cutout subset, to which the main tree's opaque view is
+    added as ``accel.lbvh.build_scene_bvh`` adds it."""
     point_lights = None
     if obj.point_lights is not None:
         point_lights = _fields(PointLights, obj.point_lights, device)
-    bvh = None
-    if obj.bvh is not None:
-        b = obj.bvh
-        names = ("nodes", "child_index", "tris", "tri_flags", "tri_order",
-                 "nodes8", "child8", "tri_perm8")
-        bvh = BVH(**{
-            n: None if getattr(b, n) is None else _tensor(getattr(b, n), device)
-            for n in names
-        })
+    bvh = None if obj.bvh is None else _bvh(obj.bvh, device)
+    textures = None
+    if getattr(obj, "textures", None) is not None:
+        textures = _fields(TexturePool, obj.textures, device)
+    alpha = None
+    if getattr(obj, "alpha", None) is not None:
+        a = obj.alpha
+        alpha = AlphaScene(geometry=_fields(TraceGeometry, a.geometry, device),
+                           bvh=_bvh(a.bvh, device), tri_map=_tensor(a.tri_map, device),
+                           opaque_bvh=bvh.opaque_view())
     return Scene(
         geometry=_fields(TraceGeometry, obj.geometry, device),
         materials=_fields(Materials, obj.materials, device),
-        environment=Environment(panorama=_tensor(obj.environment.panorama, device)),
+        environment=make_environment(_tensor(obj.environment.panorama, device)),
         direct_light=_fields(DirectLight, obj.direct_light, device),
         point_lights=point_lights,
         bvh=bvh,
+        textures=textures,
+        alpha=alpha,
     )
 
 

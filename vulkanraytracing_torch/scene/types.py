@@ -148,6 +148,33 @@ class BVH:
         out = {k: (None if v is None else v.to(device)) for k, v in fields.items()}
         return BVH(**out)
 
+    def opaque_view(self) -> "BVH":
+        """The same tree with its alpha-tested triangles no candidates (bit
+        2 of the flags cleared), with tables of its own."""
+        return dataclasses.replace(self, tri_flags=self.tri_flags & ~4, table8=None,
+                                   table2=None)
+
+
+class AlphaScene(NamedTuple):
+    """The alpha-tested (cutout) triangles in a tree of their own, attached
+    by ``accel.lbvh.build_scene_bvh`` when a scene has such triangles.  A
+    trace then runs as an opaque phase over the main tree, where cutouts
+    are no candidates, and a closest-passing-cutout phase over this small
+    tree with the bounded alpha re-trace (``ops.trace``).
+
+    ``opaque_bvh`` is the main tree with bit 2 of its triangle flags
+    cleared: built once per scene, with its own lazily packed kernel
+    tables, because the tables are cached on the BVH object and packing
+    them reads the tree back to the host."""
+
+    geometry: TraceGeometry  # the cutout subset, in its own BVH order
+    bvh: BVH                 # the tree over the subset
+    tri_map: Tensor          # (Ta,) i32 — subset triangle id -> scene triangle id
+    opaque_bvh: BVH          # the main tree's opaque view
+
+    def to(self, device) -> "AlphaScene":
+        return _to(self, device)
+
 
 class Scene(NamedTuple):
     geometry: TraceGeometry
@@ -156,11 +183,11 @@ class Scene(NamedTuple):
     direct_light: DirectLight
     point_lights: Optional[PointLights]
     bvh: Optional[BVH]
-    # Texture pools and alpha-tested subsets are not ported yet; scenes that
-    # carry them are refused where they are made, carried across or given a
-    # BVH (``check_supported``), never silently ignored.
+    # the texture pool (ops.texture.TexturePool); None = untextured
     textures: Optional[Any] = None
-    alpha: Optional[Any] = None
+    # the cutout subset with its own tree; None without alpha-tested
+    # triangles (or before a BVH is built)
+    alpha: Optional[AlphaScene] = None
 
     @property
     def has_point_lights(self) -> bool:
@@ -168,18 +195,6 @@ class Scene(NamedTuple):
 
     def to(self, device) -> "Scene":
         return _to(self, device)
-
-
-def check_supported(scene: Scene) -> None:
-    """Raise for scene features this port does not implement yet.  It
-    reads the alpha flags back from the device, so it runs once per scene
-    (``accel.lbvh.build_scene_bvh``), never per frame;
-    ``make_trace_geometry`` and ``scene.convert.scene_from_numpy`` refuse
-    alpha flags on the host."""
-    if scene.textures is not None:
-        raise NotImplementedError("textured scenes are not ported yet")
-    if scene.alpha is not None or bool(scene.geometry.alpha_test.any()):
-        raise NotImplementedError("alpha-tested geometry is not ported yet")
 
 
 def make_trace_geometry(
@@ -197,8 +212,6 @@ def make_trace_geometry(
     """Assemble SOA trace geometry from indexed vertex data (numpy on the
     host, then tensors on ``device``).  Generates flat normals, arbitrary
     tangents and zero uvs when attributes are missing."""
-    if np.any(alpha_test):
-        raise NotImplementedError("alpha-tested geometry is not ported yet")
     positions = np.asarray(positions, np.float32)
     indices = np.asarray(indices, np.int64).reshape(-1, 3)
     t = indices.shape[0]
@@ -240,8 +253,7 @@ def make_trace_geometry(
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
     def flag(a, dtype):
-        a = np.broadcast_to(np.asarray(a, dtype), (t,))
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.array(np.broadcast_to(np.asarray(a, dtype), (t,)))).to(device)
 
     return TraceGeometry(
         v0=f32(p0), e1=f32(e1), e2=f32(e2),
@@ -258,6 +270,18 @@ def make_trace_geometry(
 def concat_geometry(parts: list[TraceGeometry]) -> TraceGeometry:
     """Concatenate triangle soups (instance flattening)."""
     return TraceGeometry(*[torch.cat(fs, dim=0) for fs in zip(*parts)])
+
+
+def default_materials(base_color=(1.0, 1.0, 1.0, 1.0), emission=(0.0, 0.0, 0.0, 1.0),
+                      roughness=1.0, metallic=0.0, device="cuda") -> Materials:
+    """Single-material helper with glTF defaults."""
+    return make_materials(
+        base_color_factors=[base_color],
+        emission_factors=[emission],
+        roughness_factors=[roughness],
+        metallic_factors=[metallic],
+        device=device,
+    )
 
 
 def make_materials(
@@ -309,6 +333,13 @@ def make_materials(
         emission_texture=t(_i(emission_textures)),
         occlusion_texture=t(_i(occlusion_textures)),
     )
+
+
+def make_environment(panorama: Tensor) -> Environment:
+    """Environment over an (H, W, 3) float32 panorama.  The JAX package
+    adds a 2x2 bilinear footprint table here, a TPU row-gather device; the
+    port samples the panorama with the same arithmetic."""
+    return Environment(panorama=panorama)
 
 
 def constant_environment(color, size: int = 8, device="cuda") -> Environment:
