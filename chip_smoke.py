@@ -81,7 +81,24 @@ Run from the repository root.  Phases, each printing its result:
    field over both tables; and a 128x72
    frame at the 20,000-triangle target through ``BVH_KERNEL`` against
    ``BRUTE_FORCE`` (both with the alpha re-trace): at most 0.1% of the
-   channels more than 1/255 apart.
+   channels more than 1/255 apart;
+10. the entry point: phase 9's real scene exported to a .glb (with its
+   textures as PNGs) and its sky to an .hdr in a temporary directory, the
+   .glb loaded back (triangles, cutouts and texture pool checked equal),
+   its frame 0 as loaded printed, and with the procedural shading frames
+   put back held to phase 9's frame 0 under phase 9's gate (the exporter
+   writes no tangents, so the loader makes them from the uvs and 1-spp
+   path tracing samples other directions); then ``cli.main(["render",
+   "--scene", glb, "--env", hdr, "--mode", "hybrid", ...])`` at 1920x1080
+   (the IBL bake's three products timed, with their peak memory), the PNG
+   read back equal to the Engine's display image, 3 hybrid frames of that
+   Engine from the bench camera with ms and the BVH8 launches by table,
+   the frame's peak memory, a profiled frame, a recorded frame's launches
+   replayed as in phase 5 (kernel = plain version over both tables), and
+   a 128x72 hybrid frame at the 20,000-triangle target through
+   ``BVH_KERNEL`` against ``BRUTE_FORCE`` (phase 9's gate); then
+   ``--mode pt --spp 2`` at 1920x1080 through the CLI with frame ms and
+   Mrays/s, and ``compare`` of its PNG with itself (RMSE 0).
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -98,22 +115,28 @@ kernel's time and bound summed over the replayed launches of one whole
 frame, whose later bounces are full of dead rays; ``frame_ms_unsorted``,
 the same sum over an unsorted frame (BVH8 and the packet kernels); and
 the BVH8 entries ``real_launches``, ``real_frame_ms``,
-``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9.
+``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9, and
+``hybrid_launches``, ``hybrid_frame_ms`` and ``hybrid_frame_bound_ms``
+from phase 10.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
 describing each kernel; the last is ``{"ok": true, "device": {...}}``.
 With ``--save-dir`` the last frame of each path is written there as a
 .npy image (``main_frame.npy``, ``dynamic_frame.npy``,
-``subpacket_frame.npy``, ``shared_frame.npy``, ``real_frame.npy``) and the
+``subpacket_frame.npy``, ``shared_frame.npy``, ``real_frame.npy``,
+``hybrid_frame.npy``), the CLI's hybrid image as ``hybrid.png``, and the
 profiled frames' Chrome traces as ``frame_trace.json``,
-``dynamic_frame_trace.json`` and ``real_frame_trace.json``.
+``dynamic_frame_trace.json``, ``real_frame_trace.json`` and
+``hybrid_frame_trace.json``.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import io
 import json
 import math
 import operator
@@ -121,6 +144,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -687,8 +711,9 @@ def attribute_frame(render, spans: dict, label: str) -> None:
     device activity, each function of ``spans`` ({name: (module,
     attribute)}) wrapped in a ``record_function`` range, and print each
     range's calls and the device time of the kernels launched inside it
-    (nested ranges are inside their parents'), then the traversal
-    kernels' device time by name."""
+    (nested ranges are inside their parents'; a range inside one of the
+    same name, a recursive call, is not counted again), then the
+    traversal kernels' device time by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -709,8 +734,19 @@ def attribute_frame(render, spans: dict, label: str) -> None:
     finally:
         for module, attr, fn in saved:
             setattr(module, attr, fn)
+    def outermost(e):
+        parent = e.cpu_parent
+        while parent is not None:
+            if parent.name == e.name:
+                return False
+            parent = parent.cpu_parent
+        return True
+
     for name in spans:
-        rows = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+        # a recursive call (a trace of the opaque view inside a trace) is
+        # inside its caller's range: count the outermost ranges only
+        rows = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU
+                and outermost(e)]
         device_us = sum(getattr(e, "device_time_total", 0.0) or e.cuda_time_total for e in rows)
         print(f"{label} span {name}: {len(rows)} calls, device {device_us / 1e3:.3f} ms of "
               "PyTorch kernels", flush=True)
@@ -749,6 +785,68 @@ def timed_frame(render):
     out = render()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, log: list):
+    """Each call of ``module``'s functions ``names`` while inside, timed by
+    the host clock with the card synchronized before and after, and the
+    peak device memory over the call: (name, seconds, peak bytes) into
+    ``log``."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed_fn(name, fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log.append((name, time.perf_counter() - t0, torch.cuda.max_memory_allocated()))
+            return out
+        return inner
+
+    for name, fn in saved.items():
+        setattr(module, name, timed_fn(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def kept_engines(cli):
+    """The Engines that ``cli.main`` makes while inside, kept in a list,
+    each with the ms of its draws (host clock, synchronized)."""
+    made = []
+
+    class Kept(cli.Engine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.draw_ms = []
+            made.append(self)
+
+        def draw(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().draw()
+            torch.cuda.synchronize()
+            self.draw_ms.append((time.perf_counter() - t0) * 1e3)
+
+    saved, cli.Engine = cli.Engine, Kept
+    try:
+        yield made
+    finally:
+        cli.Engine = saved
+
+
+def cli_stdout(cli, argv) -> tuple[int, str]:
+    """``cli.main(argv)``'s exit code and what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
 
 
 def main() -> int:
@@ -1302,7 +1400,217 @@ def main() -> int:
           flush=True)
     check(far <= 1e-3 and bool(torch.isfinite(a).all()) and float(a.max()) > 0.0,
           "real 128x72: BVH_KERNEL against BRUTE_FORCE")
-    lap("9 real", phase_start)
+    phase_start = lap("9 real", phase_start)
+
+    # -- 10. the entry point: .glb and .hdr in, PNG out, both modes ---------
+    from vulkanraytracing_torch.app import cli
+    from vulkanraytracing_torch.app.events import EventType
+    from vulkanraytracing_torch.app.hdr import write_hdr
+    from vulkanraytracing_torch.app.image_io import read_png
+    from vulkanraytracing_torch.env import ibl
+    from vulkanraytracing_torch.hybrid import render_hybrid
+    from vulkanraytracing_torch.scene.gltf import load_scene
+    from vulkanraytracing_torch.scene.gltf_export import export_scene_glb
+    from vulkanraytracing_torch.scene.procedural import sponza_real_images
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = Path(tmp)
+        # (a) phase 9's real scene through a .glb and an .hdr, and back
+        t0 = time.perf_counter()
+        glb = export_scene_glb(real, work / "real.glb", images=sponza_real_images())
+        t1 = time.perf_counter()
+        hdr = work / "sky.hdr"
+        write_hdr(hdr, real.environment.panorama.cpu().numpy())
+        t2 = time.perf_counter()
+        loaded, _, pool = load_scene(glb, device=device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        print(f"[10 entry] exported real.glb ({glb.stat().st_size} bytes) in {t1 - t0:.2f} s "
+              f"and sky.hdr ({hdr.stat().st_size} bytes) in {t2 - t1:.2f} s; loaded the .glb "
+              f"in {t3 - t2:.2f} s: {loaded.geometry.num_triangles} triangles, "
+              f"{int(loaded.geometry.alpha_test.sum())} alpha-tested, texture pool "
+              f"{pool.nbytes} bytes", flush=True)
+        check(loaded.geometry.num_triangles == real.geometry.num_triangles
+              and int(loaded.geometry.alpha_test.sum()) == n_cut
+              and pool.nbytes == real.textures.nbytes
+              and torch.equal(pool.texels, real.textures.texels),
+              "the .glb round trip keeps the triangles, the cutouts and the texture pool")
+        # The exporter writes no TANGENT (as the JAX package's), so the
+        # loader makes each triangle's tangents from its uvs, and 1-spp
+        # path tracing maps the same random numbers through other frames:
+        # that frame is printed.  The gate is held by the loaded scene with
+        # the procedural shading frames put back, triangle by triangle (the
+        # exporter writes the triangles grouped by material, culling and
+        # alpha test, in their order within a group)
+        g = real.geometry
+        order = torch.from_numpy(np.lexsort((g.alpha_test.cpu().numpy(),
+                                             g.cull_disable.cpu().numpy(),
+                                             g.material_id.cpu().numpy()))).to(device)
+        check(torch.equal(loaded.geometry.v0, g.v0[order])
+              and torch.equal(loaded.geometry.e1, g.e1[order]),
+              "the .glb keeps each triangle, grouped as the exporter writes them")
+        frames_of = {name: getattr(g, name)[order] for name in ("n0", "n1", "n2", "t0", "t1", "t2")}
+        differ = {name: float((getattr(loaded.geometry, name) != x).any(dim=-1).float().mean())
+                  for name, x in frames_of.items() if name in ("n0", "t0")}
+        loaded = loaded._replace(environment=real.environment, direct_light=real.direct_light)
+        for label, scene in (("as loaded", loaded), (
+                "with the procedural shading frames",
+                loaded._replace(geometry=loaded.geometry._replace(**frames_of)))):
+            scene = build_scene_bvh(scene, builder="sah")
+            (st, st_stats), ms = timed_frame(lambda: render_frame(
+                scene, cfg, main_camera, create_render_state(cfg, device)))
+            a, b = st.accumulation, real_first[0]
+            far = float(((a - b).abs() > 1.0 / 255.0 + 1e-6).float().mean())
+            print(f"[10 entry] the loaded scene {label}: frame 0 {ms:.1f} ms, "
+                  f"{int(st_stats.rays)} rays, against phase 9's frame 0 ({real_first[1]} rays): "
+                  f"{far:.2e} of the channels more than 1/255 apart, bit-equal "
+                  f"{bool(torch.equal(a, b))}", flush=True)
+            check(bool(torch.isfinite(a).all()) and float(a.max()) > 0.0,
+                  f"the .glb scene's frame ({label}): finite, not black")
+        print(f"[10 entry] shares of the triangles whose loaded normal / tangent differ from "
+              f"the procedural scene's: {differ['n0']:.4f} / {differ['t0']:.4f}", flush=True)
+        check(far <= 1e-3, "the .glb scene's frame, with the procedural shading frames, "
+                           "against phase 9's frame 0")
+        del loaded, scene, st
+
+        # (b) the hybrid mode through the CLI, then its Engine's frames
+        png = work / "hybrid.png"
+        bakes = []
+        for module, _ in kernels.values():
+            module.LAUNCHES.clear()
+        with kept_engines(cli) as engines, timed_calls(ibl, (
+                "compute_irradiance_cube", "compute_reflection_cube", "compute_brdf_lut"),
+                bakes):
+            t0 = time.perf_counter()
+            rc = cli.main(["render", "--scene", str(glb), "--env", str(hdr), "--mode", "hybrid",
+                           "--width", "1920", "--height", "1080", "--out", str(png)])
+            cli_s = time.perf_counter() - t0
+        cli_launches = launch_counts(kernels)
+        eng = engines[-1]
+        check(rc == 0 and eng.cfg.traversal == TraversalMode.BVH_KERNEL,
+              "hybrid render through the CLI")
+        for name, sec, peak in bakes:
+            print(f"[10 hybrid] IBL bake {name}: {sec:.3f} s, peak device memory "
+                  f"{peak / 2**30:.2f} GiB", flush=True)
+        env = eng.scene.environment
+        check(tuple(env.irradiance.shape) == (6, 128, 128, 3) and len(env.reflection) == 10
+              and tuple(env.brdf_lut.shape) == (256, 256, 2)
+              and all(bool(torch.isfinite(m).all()) for m in (env.irradiance, env.brdf_lut,
+                                                               *env.reflection)),
+              "the IBL bake's sizes and values")
+        shown = read_png(png)
+        check(np.array_equal(shown, eng.display_image()),
+              "the hybrid PNG read back equals Engine.display_image()")
+        check(cli_launches["bvh8_closest"] > 0 and cli_launches["bvh8_any"] > 0
+              and not any(c for k, c in cli_launches.items() if not k.startswith("bvh8")),
+              f"hybrid CLI frame launches {cli_launches}")
+        print(f"[10 hybrid] CLI render --mode hybrid 1920x1080: {cli_s:.2f} s in all "
+              f"(load, SAH build, sun, bake, {eng.draw_ms[0]:.1f} ms frame, PNG); launches "
+              f"{cli_launches}; PNG {png.stat().st_size} bytes = display image; sun direction "
+              f"{[round(x, 4) for x in eng.scene.direct_light.direction[:3].tolist()]}",
+              flush=True)
+        if args.save_dir is not None:
+            shutil.copy(png, args.save_dir / "hybrid.png")
+
+        # the Engine's frames from the bench camera (a camera move)
+        eng.camera.set_position(BENCH_CAMERA["position"])
+        eng.camera.set_target(BENCH_CAMERA["target"])
+        eng.bus.trigger(EventType.CAMERA_UPDATE, None)
+        h_tables = {id(eng.scene.alpha.opaque_bvh): "opaque view", id(eng.scene.alpha.bvh): "subset"}
+
+        def h_name(bvh):
+            return h_tables.get(id(bvh), "other")
+
+        for module, _ in kernels.values():
+            module.LAUNCHES.clear()
+        hybrid_ms = []
+        for frame in range(3):
+            before = launch_counts(kernels)
+            with TableCounts(h_name) as by_table:
+                _, ms = timed_frame(eng.draw)
+            hybrid_ms.append(ms)
+            n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+            split = by_table.counts
+            check(not any(c for k, c in n.items() if not k.startswith("bvh8"))
+                  and set(t for t, _ in split) == {"opaque view", "subset"}
+                  and all(n[f"bvh8_{kind}"] == sum(c for (_, k), c in split.items() if k == kind)
+                          for kind in ("closest", "any")),
+                  f"hybrid frame {frame}: launches {n} by table {dict(split)}")
+            print(f"[10 hybrid] frame {frame}: {ms:.1f} ms; launches bvh8 closest "
+                  f"{n['bvh8_closest']} (opaque view {split[('opaque view', 'closest')]}, subset "
+                  f"{split[('subset', 'closest')]}), any {n['bvh8_any']} (opaque view "
+                  f"{split[('opaque view', 'any')]}, subset {split[('subset', 'any')]})",
+                  flush=True)
+        hybrid_launches = {k: c for k, c in launch_counts(kernels).items() if k.startswith("bvh8")}
+        img = eng.state.accumulation
+        check(tuple(img.shape) == (1080, 1920, 3) and bool(torch.isfinite(img).all())
+              and float(img.max()) > 0.0, "hybrid image: shape, finite, not black")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.draw()
+        print(f"[10 hybrid] image 1080x1920: mean {float(img.mean()):.4f}; peak device memory "
+              f"of a frame {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if args.save_dir is not None:
+            np.save(args.save_dir / "hybrid_frame.npy", img[::4, ::4].cpu().numpy())
+        profile_frame(eng.draw, sum(hybrid_ms[1:]) / len(hybrid_ms[1:]), args.save_dir,
+                      "hybrid_frame_trace.json")
+        from vulkanraytracing_torch.hybrid import renderer
+
+        attribute_frame(eng.draw, {
+            "G-buffer: trace_closest": (trace, "trace_closest"),
+            "shadow rays: trace_any": (trace, "trace_any"),
+            "cutout subset phase": (trace, "_closest_alpha_subset"),
+            "_hit_alpha": (trace, "_hit_alpha"),
+            "material unpack": (renderer, "unpack_material"),
+            "material: texture sampling": (surface, "sample_pool"),
+            "footprint": (renderer, "_footprint"),
+            "IBL: irradiance cube": (renderer, "sample_cube"),
+            "IBL: reflection mips": (renderer, "sample_cube_mips"),
+            "sky": (renderer, "sample_environment"),
+            "light spheres": (renderer, "intersect_point_light_spheres"),
+        }, "[10 hybrid]")
+        calls = record_frame(eng.draw)
+        hybrid_in_frame = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[10 replay]",
+                                 name_of=h_name)["bvh8"]
+        del calls
+
+        # (d) hybrid through the kernel against brute force, 128x72 at the
+        # 20,000-triangle target, under the baked environment and its sun
+        small_h = small_real._replace(environment=env, direct_light=eng.scene.direct_light)
+        out = {}
+        for mode in (TraversalMode.BVH_KERNEL, TraversalMode.BRUTE_FORCE):
+            mcfg = small.replace(traversal=mode)
+            out[mode], ms = timed_frame(lambda: render_hybrid(small_h, mcfg, small_cam))
+        a, b = out[TraversalMode.BVH_KERNEL], out[TraversalMode.BRUTE_FORCE]
+        far = float(((a - b).abs() > 1.0 / 255.0 + 1e-6).float().mean())
+        print(f"[10 hybrid] 128x72 at the 20,000-triangle target: BVH_KERNEL against "
+              f"BRUTE_FORCE {far:.2e} of the channels more than 1/255 apart, "
+              f"{int((a != b).any(dim=-1).sum())} pixels differ", flush=True)
+        check(far <= 1e-3 and bool(torch.isfinite(a).all()) and float(a.max()) > 0.0,
+              "hybrid 128x72: BVH_KERNEL against BRUTE_FORCE")
+        del eng, engines
+
+        # (c) path tracing through the CLI, and compare
+        pt_png = work / "pt.png"
+        for module, _ in kernels.values():
+            module.LAUNCHES.clear()
+        with kept_engines(cli) as engines:
+            rc = cli.main(["render", "--scene", str(glb), "--env", str(hdr), "--mode", "pt",
+                           "--spp", "2", "--width", "1920", "--height", "1080",
+                           "--out", str(pt_png)])
+        pt_launches = launch_counts(kernels)
+        eng = engines[-1]
+        check(rc == 0 and eng.state.accum_index == 2 and pt_launches["bvh8_closest"] > 0,
+              f"pt render through the CLI: launches {pt_launches}")
+        print(f"[10 pt] CLI render --mode pt --spp 2 1920x1080: frames "
+              + " / ".join(f"{x:.1f}" for x in eng.draw_ms) + f" ms, {eng.total_rays:.0f} rays, "
+              f"{eng.total_rays / sum(eng.draw_ms) / 1e3:.2f} Mrays/s; launches {pt_launches}",
+              flush=True)
+        rc, said = cli_stdout(cli, ["compare", str(pt_png), str(pt_png)])
+        check(rc == 0 and json.loads(said)["rmse"] == 0.0, f"compare of a PNG with itself: {said}")
+        print(f"[10 pt] compare pt.png pt.png: {said.strip()}", flush=True)
+        del eng, engines
+    lap("10 entry", phase_start)
 
     lines = []
     for key, (err, ms, plain_ms) in result.items():
@@ -1330,6 +1638,12 @@ def main() -> int:
             in_frame_txt += (f"; real workload: {real_launches[key]} launches in its frames, "
                              f"{r_ms:.3f} ms over the {r_launches} launches of one replayed "
                              f"frame (bound {r_bound_ms:.4f} ms)")
+            h_ms, h_bound_ms, h_launches = hybrid_in_frame[kind]
+            lines[-1].update(hybrid_launches=hybrid_launches[key], hybrid_frame_ms=h_ms,
+                             hybrid_frame_bound_ms=h_bound_ms)
+            in_frame_txt += (f"; hybrid: {hybrid_launches[key]} launches in its frames, "
+                             f"{h_ms:.3f} ms over the {h_launches} launches of one replayed "
+                             f"frame (bound {h_bound_ms:.4f} ms)")
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
               f"in the frames of its path{in_frame_txt}", flush=True)

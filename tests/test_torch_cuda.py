@@ -350,3 +350,54 @@ def test_real_frame_on_the_card_sorted_equals_unsorted(real_scene, monkeypatch):
     assert rays_s == rays_u
     assert torch.equal(sorted_.accumulation, unsorted.accumulation)
     assert float(sorted_.accumulation.max()) > 0.0
+
+
+def test_ibl_bake_on_the_card_matches_the_cpu(cuda):
+    """The bake's products on the card (TF32 off) against the CPU's: rtol
+    1e-4 for the convolutions, 1e-5 for the BRDF table."""
+    from vulkanraytracing_torch.env import ibl
+
+    pano = torch.from_numpy(np.random.default_rng(3).uniform(0, 2, (64, 128, 3)).astype(np.float32))
+    pano[16:24, 40:48] += 50.0
+    torch.backends.cuda.matmul.allow_tf32 = True  # the bake must switch it off itself
+    try:
+        irr = ibl.compute_irradiance_cube(pano.to(cuda), 16)
+        refl = ibl.compute_reflection_cube(pano.to(cuda), 32, 4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(irr.cpu(), ibl.compute_irradiance_cube(pano, 16), rtol=1e-4, atol=1e-6)
+    for a, b in zip(refl, ibl.compute_reflection_cube(pano, 32, 4)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(ibl.compute_brdf_lut(32, 1024, device=cuda).cpu(),
+                               ibl.compute_brdf_lut(32, 1024, device="cpu"), rtol=1e-5, atol=1e-5)
+
+
+def test_hybrid_frame_on_the_card_matches_the_cpu(real_scene):
+    """A 64x36 hybrid frame of the real scene through the BVH8 kernel
+    against the same frame on the CPU (the plain version): 99.9% of the
+    channels within 1/255 (the card's sin, cos and pow round otherwise)."""
+    from vulkanraytracing_torch.env.ibl import bake_ibl
+    from vulkanraytracing_torch.hybrid import render_hybrid
+
+    scene = real_scene._replace(environment=bake_ibl(real_scene.environment, 8, 16, 16))
+    cfg = Config(width=64, height=36, camera=CameraConfig(
+        position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0), aspect_ratio=64 / 36))
+    before = dict(tw.LAUNCHES)
+    on_card = render_hybrid(scene, cfg, Camera(cfg.camera).to_device("cuda"))
+    assert tw.LAUNCHES["closest"] > before.get("closest", 0)
+    assert tw.LAUNCHES["any"] > before.get("any", 0)
+    on_cpu = render_hybrid(scene.to("cpu"), cfg, Camera(cfg.camera).to_device("cpu"))
+    close = (on_card.cpu() - on_cpu).abs() <= 1.0 / 255.0 + 1e-6
+    assert float(close.float().mean()) >= 0.999
+    assert float(on_cpu.mean()) > 0.05
+
+
+def test_cli_renders_on_the_card_by_default(cuda, tmp_path):
+    from vulkanraytracing_torch.app import cli
+    from vulkanraytracing_torch.app.image_io import read_png
+
+    out = tmp_path / "c.png"
+    before = tw.LAUNCHES["closest"]
+    assert cli.main(["render", "--scene", "cornell", "--mode", "hybrid", "--width", "32",
+                     "--height", "32", "--out", str(out)]) == 0
+    assert tw.LAUNCHES["closest"] > before and read_png(out).shape == (32, 32, 3)

@@ -2,8 +2,8 @@
 resize, checkpoints, the mode toggle, and the animated-instances path
 (TLAS build, per-move refit, reset) against the JAX package's Engine.
 
-Ports of ``tests/test_engine.py``; hybrid drawing is not ported, so the
-toggle test checks that ``draw`` refuses it.  The JAX comparison renders
+Ports of ``tests/test_engine.py``; the toggle test draws a hybrid frame.
+The JAX comparison renders
 ``animated_instances_demo(orbiters=2)`` at 32x32 for 2 frames (a build
 frame and a refit frame): the JAX Engine in brute force (its oracle),
 the port through its BVH2 traversal (the plain version on the CPU).
@@ -26,7 +26,9 @@ from vulkanraytracing_torch.config import CameraConfig, Config, RenderMode, Trav
 from vulkanraytracing_torch.ops import traverse_wide as tw2
 from vulkanraytracing_torch.pt.render import create_render_state, render_frame
 from vulkanraytracing_torch.scene.camera import Camera
-from vulkanraytracing_torch.scene.procedural import animated_instances_demo, cornell_box_scene
+from vulkanraytracing_torch.scene.procedural import (
+    animated_instances_demo, cornell_box_scene, sponza_like_scene,
+)
 
 torch.set_num_threads(1)
 
@@ -96,14 +98,16 @@ def test_camera_move_resets_accumulation():
 
 
 def test_mode_toggle():
-    """The T key toggles the mode; drawing in hybrid mode is not ported
-    and raises, and path tracing draws again after the second toggle."""
+    """The T key toggles the mode; a hybrid frame draws (the display image
+    goes into the accumulation, the frame count stays), and path tracing
+    draws again after the second toggle."""
     eng = _engine()
     assert eng.render_mode == RenderMode.PATH_TRACING
     eng.inject_key(Key.T)
     assert eng.render_mode == RenderMode.HYBRID
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        eng.draw()
+    eng.run(1)
+    img = eng.display_image()
+    assert img.shape == (16, 16, 3) and img.max() > 0 and eng.state.accum_index == 0
     eng.inject_key(Key.T)
     assert eng.render_mode == RenderMode.PATH_TRACING
     eng.run(1)
@@ -217,3 +221,76 @@ def test_engine_matches_jax_on_animated_instances(tmp_path):
     assert eng.state.accum_index == 1
     np.testing.assert_array_equal(eng.state.accumulation.numpy(), want)
     assert eng.camera.description.position == pytest.approx(DEMO_CAMERA["position"])
+
+
+def test_engine_real_scene_matches_jax():
+    """A static textured scene with alpha-tested foliage goes through the
+    Engine as its caller built it (the opaque view and the cutout subset):
+    the real workload at its 20,000-triangle target, 64x36, against the
+    JAX package's Engine under the gate above.  The depth is cut to 1
+    bounce: the JAX frame's compile grows with the bounces (14 s at 1, 29
+    s at 2, about 90 s at 4 on this CPU).  The hybrid mode draws the same
+    scene too."""
+    from vulkanraytracing_torch.scene.convert import scene_from_numpy
+    from vulkanraytracing_tpu.accel.lbvh import build_scene_bvh as j_build
+    from vulkanraytracing_tpu.app.engine import Engine as JEngine
+    from vulkanraytracing_tpu.config import CameraConfig as JCameraConfig
+    from vulkanraytracing_tpu.config import Config as JConfig
+    from vulkanraytracing_tpu.config import TraversalMode as JMode
+    from vulkanraytracing_tpu.scene.procedural import sponza_like_scene as j_sponza
+
+    import jax
+
+    hall = dict(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0), aspect_ratio=64 / 36)
+    js = j_build(j_sponza(20000, workload="real"), builder="sah")
+    jeng = JEngine(JConfig(width=64, height=36, max_bounce_count=1, traversal=JMode.BVH,
+                           camera=JCameraConfig(**hall)), js)
+    jeng.run(1)
+    want = np.asarray(jeng.state.accumulation)
+
+    ts = scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
+    eng = Engine(Config(width=64, height=36, max_bounce_count=1,
+                        traversal=TraversalMode.BVH_KERNEL, camera=CameraConfig(**hall)),
+                 ts, device="cpu")
+    assert eng.scene.alpha is not None and eng.scene.textures is not None
+    eng.run(1)
+    got = eng.state.accumulation.numpy()
+    close = np.abs(got - want) <= 1.0 / 255.0 + 1e-6
+    assert close.mean() >= 0.99, f"{close.mean():.4f} of channels within 1/255"
+    assert abs(eng.total_rays - jeng.total_rays) <= 0.005 * jeng.total_rays
+    assert got.mean() > 0.05
+
+    eng.inject_key(Key.T)
+    eng.run(1)
+    assert eng.render_mode == RenderMode.HYBRID
+    assert eng.display_image().shape == (36, 64, 3) and eng.display_image().mean() > 10
+
+
+def test_animated_textured_instances_trace_the_whole_scene_loop():
+    """Animated instances of a textured scene: the TLAS carries no cutout
+    subset, so the Engine drops the static one and every trace runs the
+    alpha re-trace over the whole scene (both modes draw)."""
+    from vulkanraytracing_torch.accel.lbvh import build_scene_bvh
+
+    from vulkanraytracing_torch.accel.tlas import make_instances
+
+    real = build_scene_bvh(sponza_like_scene(4000, workload="real", device="cpu"),
+                           builder="sah")
+    assert real.alpha is not None
+
+    def moves(frame):  # the hall, and a copy of it sliding along x
+        t = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+        t[1, 0, 3] = 30.0 + frame
+        return t
+
+    eng = Engine(Config(width=16, height=16, max_bounce_count=1,
+                        camera=CameraConfig(position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0),
+                                            aspect_ratio=1.0)),
+                 real, instances=make_instances([real.geometry], [0, 0]), animation=moves,
+                 device="cpu")
+    assert eng.scene.alpha is None and eng.scene.textures is not None
+    eng.run(2)
+    assert np.isfinite(eng.display_image()).all()
+    eng.inject_key(Key.T)
+    eng.run(1)
+    assert eng.display_image().shape == (16, 16, 3)

@@ -96,7 +96,41 @@ def test_no_device_parameter_defaults_to_the_cpu(path):
                 assert default.value != "cpu", (path.name, node.name)
 
 
+def _load_scene():
+    import tempfile
+
+    from vulkanraytracing_torch.scene.gltf import load_scene
+    from vulkanraytracing_torch.scene.gltf_export import export_scene_glb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return load_scene(export_scene_glb(cornell_box_scene(device="cpu"), Path(tmp) / "c.glb"))
+
+
+def _bake_ibl():
+    from vulkanraytracing_torch.env.ibl import bake_ibl
+    from vulkanraytracing_torch.scene.types import constant_environment
+
+    return bake_ibl(constant_environment((1.0, 0.5, 0.25)), 4, 8, 8)
+
+
+def _render_hybrid():
+    from vulkanraytracing_torch.hybrid import render_hybrid
+
+    return render_hybrid(cornell_box_scene(), Config(width=8, height=8),
+                         Camera(CameraConfig(aspect_ratio=1.0)).to_device())
+
+
+def _brdf_lut():
+    from vulkanraytracing_torch.env.ibl import compute_brdf_lut
+
+    return compute_brdf_lut(8, 16)
+
+
 ENTRY_POINTS = {
+    "load_scene": _load_scene,
+    "bake_ibl": _bake_ibl,
+    "render_hybrid": _render_hybrid,
+    "compute_brdf_lut": _brdf_lut,
     "sponza_like_scene": lambda: sponza_like_scene(4000),
     "cornell_box_scene": lambda: cornell_box_scene(),
     "create_render_state": lambda: create_render_state(Config(width=8, height=8)),

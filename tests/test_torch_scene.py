@@ -104,8 +104,8 @@ def test_unported_features_raise():
 def test_textures_and_alpha_refused_where_scenes_are_made():
     """Textures and alpha tests are carried wherever a static scene is made
     (made, carried across or given a BVH, which attaches the cutout
-    subset); the Engine, whose scenes are built on the device, refuses a
-    textured scene."""
+    subset); the Engine keeps a static scene's cutout subset as built (it
+    refused textured scenes before they were ported to it)."""
     from vulkanraytracing_torch.app.engine import Engine
     from vulkanraytracing_torch.config import Config as TConfig
 
@@ -123,8 +123,9 @@ def test_textures_and_alpha_refused_where_scenes_are_made():
     assert built.alpha.geometry.num_triangles == ts.geometry.num_triangles
     assert not bool((built.alpha.opaque_bvh.tri_flags & 4).any())
     assert t_build(ts).alpha is None
-    with pytest.raises(NotImplementedError, match="textured"):
-        Engine(TConfig(), ts._replace(textures=object()), device="cpu")
+    eng = Engine(TConfig(width=8, height=8), built, device="cpu")
+    assert eng.scene.alpha is not None
+    assert eng.scene.alpha.geometry.num_triangles == ts.geometry.num_triangles
 
 
 def test_default_materials_match_jax():

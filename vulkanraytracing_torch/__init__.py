@@ -6,20 +6,26 @@ reference's module layout and public names so each module has an obvious
 counterpart:
 
 - ``core``   — hash RNG (xoroshiro64** + Wang hash), shading math
-- ``scene``  — scene tensors, camera, procedural scenes, numpy bridge
+- ``scene``  — scene tensors, camera, procedural scenes, the glTF/GLB
+  importer and .glb writer, numpy bridge
 - ``accel``  — on-device LBVH, instancing and TLAS refit, native SAH build
   + BVH8 collapse (copies of the reference's C++ sources, in ``csrc/``)
 - ``ops``    — brute-force oracle, the BVH8, BVH2, subpacket and
   shared-cursor traversals (CUDA kernels + plain PyTorch versions), the
   plain packet backend, trace dispatch
-- ``env``    — environment panorama sampling
+- ``env``    — panorama and cube sampling, the sun, the IBL bake
 - ``pt``     — BSDF, material unpack, the integrator, progressive frames
-- ``app``    — the Engine: systems, events, animated instances, checkpoints
-- ``utils``  — logging, frame timer, ray counter
+- ``hybrid`` — the hybrid (G-buffer + IBL) render mode
+- ``app``    — the Engine (both render modes, systems, events, animated
+  instances, checkpoints), the command line (``python -m
+  vulkanraytracing_torch render|view|compare``), the terminal viewer,
+  PNG and HDR image I/O
+- ``utils``  — logging, frame timer, scope stopwatch, ray counter
 
-The package imports torch and numpy only.  Its CUDA kernels (the four
-traversals, ``csrc/``) and the native builders are compiled on first use
-into ``vulkanraytracing_torch/build/``.  Every entry point builds on the
+The package imports torch and numpy (and Pillow where it is installed:
+for a glTF image that is not an 8-bit PNG, and to resize textures).  Its
+CUDA kernels (the four traversals, ``csrc/``) and the native builders are
+compiled on first use into ``vulkanraytracing_torch/build/``.  Every entry point builds on the
 card unless it is given ``device="cpu"``.
 """
 

@@ -10,11 +10,17 @@ frame whose transforms did not change keeps accumulating.  Checkpoints
 are ``.npz`` files in the JAX package's format (framebuffer, spp, camera,
 render mode), so either package can resume the other's.
 
+The T key toggles between the two render modes.  A hybrid frame
+(``hybrid.render_hybrid``) does not accumulate: its display image goes
+into ``RenderState.accumulation`` and the frame count stays.  A static
+textured scene traces as its caller built it (with the cutout subset
+that ``accel.lbvh.build_scene_bvh`` attaches); animated instances trace
+with the alpha re-trace over the whole scene, as their trees are built
+on the device and carry no subset.
+
 Every tensor lives on ``device``, a required keyword: there is no default
 that could move a scene off the card and onto the plain versions.  Not
-ported yet:
-drawing in ``RenderMode.HYBRID`` (the T key toggles the mode; ``draw``
-then raises) and the multi-device ``mesh``.
+ported yet: the multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from vulkanraytracing_torch.accel import tlas
 from vulkanraytracing_torch.app.events import EventBus, EventType, Key, KeyAction, KeyInput
 from vulkanraytracing_torch.app.systems import CameraSystem, StatsSystem, System
 from vulkanraytracing_torch.config import Config, RenderMode
+from vulkanraytracing_torch.hybrid import render_hybrid
 from vulkanraytracing_torch.pt.render import (
     RenderState,
     create_render_state,
@@ -57,8 +64,6 @@ class Engine:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device rendering is not ported yet")
-        if scene.textures is not None:
-            raise NotImplementedError("textured scenes in the Engine are not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
@@ -78,7 +83,7 @@ class Engine:
             instances = instances.to(self.device)
             geom, bvh, order = tlas.build_tlas(instances, self._transforms(t0))
             self._soup_sorted = tlas.permute_soup(instances, order)
-            self.scene = self.scene._replace(geometry=geom, bvh=bvh)
+            self.scene = self.scene._replace(geometry=geom, bvh=bvh, alpha=None)
             self._last_transforms = t0
         self.camera = camera or Camera(cfg.camera)
         self.render_mode = cfg.render_mode
@@ -189,8 +194,10 @@ class Engine:
 
         self._advance_animation()
         camera = self._device_camera()
-        if self.render_mode != RenderMode.PATH_TRACING:
-            raise NotImplementedError("hybrid drawing is not ported yet")
+        if self.render_mode == RenderMode.HYBRID:
+            image = render_hybrid(self.scene, self.cfg, camera)
+            self.state = RenderState(accumulation=image, accum_index=self.state.accum_index)
+            return
         self.state, stats = render_frame(self.scene, self.cfg, camera, self.state)
         rays = float(stats.rays)  # a readback every frame, as the reference
         self.total_rays += rays

@@ -1,9 +1,8 @@
 """Typed runtime configuration — the fields the ported slices read.
 
-Counterpart of ``vulkanraytracing_tpu/config.py``.  Both render modes
-exist and the Engine toggles between them, but only path tracing draws:
-hybrid drawing, IBL sizes and anisotropic taps (``hybrid_aniso_taps``)
-come with a later slice.
+Counterpart of ``vulkanraytracing_tpu/config.py``, with the same names
+and defaults.  Both render modes draw, and the Engine's T key toggles
+between them.
 """
 
 from __future__ import annotations
@@ -89,8 +88,22 @@ class Config:
     reverse_depth: bool = True
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
 
+    # environment preprocessing, declared as in the JAX package: the IBL
+    # sizes (``env.ibl.bake_ibl``'s defaults, which the CLI bakes with) and
+    # the sun's luminance clamp (``env.sun.K_MAX_LUMINANCE``)
+    env_cube_size: int = 1024
+    irradiance_size: int = 128
+    reflection_size: int = 512
+    brdf_lut_size: int = 256
+    direct_light_max_luminance: float = 25.0
+
     # Rays per integrator call; a 1080p frame is one chunk at the default.
     ray_chunk_size: int = 1 << 22
+
+    # Anisotropic texture taps of the hybrid G-buffer fetch (the reference
+    # sampler's maxAnisotropy 16); 1 is plain trilinear.  16 is the parity
+    # default: fewer taps are a speed option that changes the image.
+    hybrid_aniso_taps: int = 16
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -135,11 +135,44 @@ def tone_mapping(linear: Tensor) -> Tensor:
     return (x * (6.2 * x + 0.5)) / (x * (6.2 * x + 1.7) + 0.06)
 
 
+def uncharted_tone_mapping(linear: Tensor) -> Tensor:
+    """The Uncharted 2 filmic curve, white point 11.2 (in the reference
+    renderer's shader library, unused by its renderer)."""
+    a, b, c, d, e, f, wp = 0.22, 0.30, 0.10, 0.20, 0.01, 0.30, 11.2
+
+    def curve(x):
+        return ((x * (a * x + c * b) + d * e) / (x * (a * x + b) + d * f)) - e / f
+
+    return curve(linear) / curve(torch.tensor(wp, dtype=linear.dtype, device=linear.device))
+
+
 def pow5(x: Tensor) -> Tensor:
     """x**5 as x * ((x*x)*(x*x)) — the multiplication order of
     ``jax.lax.integer_pow``."""
     x2 = x * x
     return x * (x2 * x2)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def reverse_bits32(bits: Tensor) -> Tensor:
+    """Bit reversal of 32-bit words.  uint32 values live in int64 masked to
+    32 bits, as in ``core.rng``: torch has no uint32 shifts on the CPU."""
+    bits = bits.to(torch.int64) & _M32
+    bits = ((bits << 16) | (bits >> 16)) & _M32
+    bits = ((bits & 0x55555555) << 1) | ((bits & 0xAAAAAAAA) >> 1)
+    bits = ((bits & 0x33333333) << 2) | ((bits & 0xCCCCCCCC) >> 2)
+    bits = ((bits & 0x0F0F0F0F) << 4) | ((bits & 0xF0F0F0F0) >> 4)
+    bits = ((bits & 0x00FF00FF) << 8) | ((bits & 0xFF00FF00) >> 8)
+    return bits
+
+
+def hammersley(i: Tensor, n: int) -> Tensor:
+    """The i-th of n Hammersley points, (..., 2)."""
+    e1 = torch.remainder(i.to(torch.float32) / n, 1.0)
+    e2 = reverse_bits32(i).to(torch.float32) * 2.3283064365386963e-10
+    return torch.stack([e1, e2], dim=-1)
 
 
 def cosine_sample_hemisphere(e: Tensor) -> Tensor:
@@ -154,3 +187,11 @@ def cosine_sample_hemisphere(e: Tensor) -> Tensor:
 
 def cosine_pdf_hemisphere(cos_theta: Tensor) -> Tensor:
     return cos_theta * INVERSE_PI
+
+
+def power_heuristic(pdf_a: Tensor, pdf_b: Tensor) -> Tensor:
+    """Veach's power heuristic, exponent 2 (in the reference renderer's
+    shader library, unused by its renderer)."""
+    f = pdf_a * pdf_a
+    g = pdf_b * pdf_b
+    return f / (f + g)

@@ -21,6 +21,7 @@ from vulkanraytracing_torch.scene.types import (
     BVH,
     AlphaScene,
     DirectLight,
+    Environment,
     Materials,
     PointLights,
     Scene,
@@ -48,12 +49,28 @@ def _bvh(b, device) -> BVH:
                   for n in _BVH_FIELDS})
 
 
+def _environment(env, device) -> Environment:
+    """The panorama and whichever IBL fields are set (the JAX package's
+    2x2 footprint table is not carried)."""
+    def opt(name):
+        a = getattr(env, name, None)
+        return None if a is None else _tensor(a, device)
+
+    reflection = getattr(env, "reflection", None)
+    if reflection is not None:
+        reflection = tuple(_tensor(m, device) for m in reflection)
+    return make_environment(_tensor(env.panorama, device))._replace(
+        irradiance=opt("irradiance"), reflection=reflection, brdf_lut=opt("brdf_lut"))
+
+
 def scene_from_numpy(obj, device="cuda") -> Scene:
     """Port ``Scene`` from a numpy-leaved scene with the JAX field names:
     geometry, materials with their texture slots, the panorama, lights,
     the BVH, the texture pool (less its footprint table, a TPU gather
-    device) and the cutout subset, to which the main tree's opaque view is
-    added as ``accel.lbvh.build_scene_bvh`` adds it."""
+    device), the cutout subset, to which the main tree's opaque view is
+    added as ``accel.lbvh.build_scene_bvh`` adds it, and the IBL fields of
+    the environment (irradiance cube, reflection mips, BRDF table) where
+    they were baked."""
     point_lights = None
     if obj.point_lights is not None:
         point_lights = _fields(PointLights, obj.point_lights, device)
@@ -70,7 +87,7 @@ def scene_from_numpy(obj, device="cuda") -> Scene:
     return Scene(
         geometry=_fields(TraceGeometry, obj.geometry, device),
         materials=_fields(Materials, obj.materials, device),
-        environment=make_environment(_tensor(obj.environment.panorama, device)),
+        environment=_environment(obj.environment, device),
         direct_light=_fields(DirectLight, obj.direct_light, device),
         point_lights=point_lights,
         bvh=bvh,

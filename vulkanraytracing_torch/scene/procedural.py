@@ -69,6 +69,26 @@ def _f32(rows, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.float32, device=device)
 
 
+def single_triangle_scene(env_color=(0.1, 0.1, 0.1), device="cuda") -> Scene:
+    """One emissive triangle facing the default camera, under a constant
+    environment: the smallest end-to-end scene."""
+    positions = np.array([[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
+    return Scene(
+        geometry=make_trace_geometry(positions, np.array([[0, 1, 2]], np.int32), device=device),
+        materials=make_materials(
+            base_color_factors=[(0.8, 0.2, 0.2, 1.0)],
+            emission_factors=[(0.5, 0.1, 0.1, 1.0)],
+            roughness_factors=[0.8],
+            metallic_factors=[0.0],
+            device=device,
+        ),
+        environment=constant_environment(env_color, device=device),
+        direct_light=no_direct_light(device),
+        point_lights=None,
+        bvh=None,
+    )
+
+
 def cornell_box_scene(
     light_intensity: float = 20.0, with_point_lights: bool = True, device="cuda"
 ) -> Scene:

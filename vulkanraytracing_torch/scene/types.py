@@ -96,10 +96,24 @@ class DirectLight(NamedTuple):
 
 
 class Environment(NamedTuple):
+    """The HDR panorama and, once ``env.ibl.bake_ibl`` has run, the hybrid
+    mode's image-based lighting: irradiance cube, GGX-prefiltered
+    reflection mips (mip m at roughness m / (mips - 1)) and the split-sum
+    BRDF table."""
+
     panorama: Tensor  # (H, W, 3) f32 linear radiance, equirectangular
+    irradiance: Optional[Tensor] = None  # (6, S, S, 3)
+    reflection: Optional[tuple] = None   # (6, s, s, 3) mips, largest first
+    brdf_lut: Optional[Tensor] = None    # (S, S, 2) scale, offset
 
     def to(self, device) -> "Environment":
-        return _to(self, device)
+        reflection = self.reflection
+        if reflection is not None:
+            reflection = tuple(m.to(device) for m in reflection)
+        return Environment(self.panorama.to(device),
+                           None if self.irradiance is None else self.irradiance.to(device),
+                           reflection,
+                           None if self.brdf_lut is None else self.brdf_lut.to(device))
 
 
 class Topology(NamedTuple):
