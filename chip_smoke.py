@@ -98,7 +98,26 @@ Run from the repository root.  Phases, each printing its result:
    a 128x72 hybrid frame at the 20,000-triangle target through
    ``BVH_KERNEL`` against ``BRUTE_FORCE`` (phase 9's gate); then
    ``--mode pt --spp 2`` at 1920x1080 through the CLI with frame ms and
-   Mrays/s, and ``compare`` of its PNG with itself (RMSE 0).
+   Mrays/s, and ``compare`` of its PNG with itself (RMSE 0);
+11. the rest: (a) the v1 and real scenes at 1,048,576 triangles, SAH build
+   and BVH8 collapse, each one table in global memory (triangles, stack
+   need against ``STACK_DEPTH``, build seconds; every table a frame reads
+   is packed before the frames), 2 v1 frames and 2 real frames at
+   1920x1080 with 4 bounces through ``BVH_KERNEL`` (ms, rays,
+   Mrays/s, BVH8 launches by table), and one more v1 frame whose launches
+   are replayed alone as in phase 5 (kernel = plain version in every
+   field, kernel ms, bound); (b) on phase 5's v1 scene,
+   ``parallel.shard_render_frame`` over ``[cuda:0, cuda:0]`` for 2 frames
+   (two shards on one card run one after the other: a check of
+   correctness, not of speed), bit-equal to 2 unsharded frames, one
+   ``shard_render_frame_samples`` step bit-equal to the mean of the
+   samples of 2 unsharded frames, one ``Engine(mesh=...)`` frame
+   bit-equal to ``render_frame``, and ``--devices`` past the card count
+   exiting with its error; (c) ``render_span(4)`` at 480x270 bit-equal to
+   4 frames, a 480x270 frame at 1 bounce under ``BVH_PER_RAY`` (plain
+   torch, no kernel) against ``BVH_KERNEL`` at phase 8's gate, and
+   ``utils.profiling.profile_to`` around a frame inside a ``trace_scope``,
+   the scope's range and the traversal kernels found in the written trace.
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -115,9 +134,10 @@ kernel's time and bound summed over the replayed launches of one whole
 frame, whose later bounces are full of dead rays; ``frame_ms_unsorted``,
 the same sum over an unsorted frame (BVH8 and the packet kernels); and
 the BVH8 entries ``real_launches``, ``real_frame_ms``,
-``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9, and
+``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9,
 ``hybrid_launches``, ``hybrid_frame_ms`` and ``hybrid_frame_bound_ms``
-from phase 10.
+from phase 10, and ``big_launches``, ``big_frame_ms`` and
+``big_frame_bound_ms`` from phase 11's 1M-triangle frames.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -853,6 +873,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save-dir", type=Path, default=None)
     args = parser.parse_args()
+    script_start = time.perf_counter()
 
     # -- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1610,7 +1631,168 @@ def main() -> int:
         check(rc == 0 and json.loads(said)["rmse"] == 0.0, f"compare of a PNG with itself: {said}")
         print(f"[10 pt] compare pt.png pt.png: {said.strip()}", flush=True)
         del eng, engines
-    lap("10 entry", phase_start)
+    phase_start = lap("10 entry", phase_start)
+
+    # -- 11. the rest: 1M-triangle scenes, sharding, spans, BVH_PER_RAY,
+    # profiling ---------------------------------------------------------------
+    from vulkanraytracing_torch.parallel import (
+        make_render_mesh, replicate_scene, shard_render_frame, shard_render_frame_samples,
+    )
+    from vulkanraytracing_torch.pt.render import accumulate, render_span, trace_rows
+    from vulkanraytracing_torch.utils.profiling import profile_to, trace_scope
+
+    # (a) the v1 and real scenes at 1,048,576 triangles, each one BVH8 table
+    big = {}
+    for workload in ("v1", "real"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = sponza_like_scene(1 << 20, workload=workload, device=device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scene = build_scene_bvh(scene, builder="sah")
+        # every table the frames read is packed here, not in a timed frame
+        for bvh in ((scene.bvh,) if scene.alpha is None
+                    else (scene.bvh, scene.alpha.opaque_bvh, scene.alpha.bvh)):
+            tw.get_table8(bvh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        need = bvh8._worst_case_stack(scene.bvh.child8.cpu().numpy())
+        check(need <= tw.STACK_DEPTH, f"1M {workload}: stack need {need}")
+        cut = "" if scene.alpha is None else (
+            f", {scene.alpha.geometry.num_triangles} alpha-tested (subset stack "
+            f"{bvh8._worst_case_stack(scene.alpha.bvh.child8.cpu().numpy())})")
+        print(f"[11 big] {workload} 1M: {scene.geometry.num_triangles} triangles{cut}; "
+              f"{scene.bvh.nodes8.shape[0]} BVH8 nodes, stack need {need} of {tw.STACK_DEPTH} "
+              f"(BVH2 {tw2.stack_need(scene.bvh)}); scene {t1 - t0:.2f} s, SAH build + BVH8 "
+              f"collapse + tables {t2 - t1:.2f} s", flush=True)
+        big[workload] = scene
+    for module, _ in kernels.values():
+        module.LAUNCHES.clear()
+    big_ms = {}
+    for workload, frames in (("v1", 2), ("real", 2)):
+        scene = big[workload]
+        tables = ({id(scene.alpha.opaque_bvh): "opaque view", id(scene.alpha.bvh): "subset"}
+                  if scene.alpha is not None else {id(scene.bvh): "main"})
+        state = create_render_state(main_cfg, device)
+        big_ms[workload] = []
+        for frame in range(frames):
+            before = launch_counts(kernels)
+            with TableCounts(lambda bvh, t=tables: t.get(id(bvh), "other")) as by_table:
+                (state, stats), ms = timed_frame(
+                    lambda: render_frame(scene, main_cfg, main_camera, state))
+            big_ms[workload].append(ms)
+            rays = int(stats.rays)
+            n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+            check(n["bvh8_closest"] >= 4 and n["bvh8_any"] >= 4
+                  and not any(c for k, c in n.items() if not k.startswith("bvh8")),
+                  f"1M {workload} frame {frame}: launches {n}")
+            split = ", ".join(f"{t} {k} {c}" for (t, k), c in sorted(by_table.counts.items()))
+            print(f"[11 big] {workload} 1M frame {frame}: {ms:.1f} ms, {rays} rays, "
+                  f"{rays / ms / 1e3:.2f} Mrays/s; launches bvh8 closest {n['bvh8_closest']}, "
+                  f"any {n['bvh8_any']} (by table: {split})", flush=True)
+        img = state.accumulation
+        check(tuple(img.shape) == (1080, 1920, 3) and bool(torch.isfinite(img).all())
+              and float(img.max()) > 0.0, f"1M {workload} image: shape, finite, not black")
+    big_launches = {k: c for k, c in launch_counts(kernels).items() if k.startswith("bvh8")}
+    # one more v1 frame recorded, each launch replayed alone against the
+    # plain version in every field, with kernel ms and bound
+    v1_big = big["v1"]
+    calls = record_frame(lambda: render_frame(v1_big, main_cfg, main_camera,
+                                              create_render_state(main_cfg, device)))
+    big_in_frame = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[11 replay 1M]")["bvh8"]
+    del calls, big, v1_big, scene, state, img
+    torch.cuda.empty_cache()
+
+    # (b) sharding on phase 5's v1 scene: two shards on the one card run one
+    # after the other, so this checks correctness only
+    mesh = make_render_mesh([device, device])
+    replicas = replicate_scene(v1, mesh)
+    check(list(replicas) == [device] and replicas[device] is v1, "one replica on one card")
+    single, sharded = create_render_state(main_cfg, device), create_render_state(main_cfg, device)
+    for frame in range(2):
+        (single, s_stats), s_ms = timed_frame(
+            lambda: render_frame(v1, main_cfg, main_camera, single))
+        before = launch_counts(kernels)
+        (sharded, m_stats), m_ms = timed_frame(
+            lambda: shard_render_frame(replicas, main_cfg, main_camera, sharded, mesh))
+        n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+        frames_alike(f"[11 shard] frame {frame} over [cuda:0, cuda:0] ({m_ms:.1f} ms; "
+                     f"launches bvh8 closest {n['bvh8_closest']}, any {n['bvh8_any']}) against "
+                     f"the unsharded frame ({s_ms:.1f} ms)", sharded.accumulation,
+                     int(m_stats.rays), single.accumulation, int(s_stats.rays), exact=True)
+        check(n["bvh8_closest"] >= 8 and n["bvh8_any"] >= 8, f"sharded frame launches {n}")
+    (step, step_stats), ms = timed_frame(lambda: shard_render_frame_samples(
+        replicas, main_cfg, main_camera, create_render_state(main_cfg, device), mesh))
+    samples = [trace_rows(v1, main_cfg, main_camera, k, device) for k in range(2)]
+    want = accumulate((samples[0][0] + samples[1][0]) / 2 * 2,
+                      torch.zeros_like(step.accumulation), 0.0, 2.0, main_cfg)
+    frames_alike(f"[11 shard] sample-parallel step over 2 shards ({ms:.1f} ms) against the "
+                 "mean of the samples of 2 unsharded frames", step.accumulation,
+                 int(step_stats.rays), want, sum(int(r) for _, r in samples), exact=True)
+    eng = Engine(main_cfg, v1, mesh=mesh, device=device)
+    before = launch_counts(kernels)
+    _, ms = timed_frame(eng.draw)
+    n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+    ref, ref_stats = render_frame(v1, main_cfg, eng._device_camera(),
+                                  create_render_state(main_cfg, device))
+    check(n["bvh8_closest"] >= 8 and n["bvh8_any"] >= 8, f"Engine(mesh=...) launches {n}")
+    frames_alike(f"[11 shard] Engine(mesh=[cuda:0, cuda:0]) frame ({ms:.1f} ms, launches "
+                 f"bvh8 closest {n['bvh8_closest']}, any {n['bvh8_any']}) against render_frame",
+                 eng.state.accumulation, int(eng.total_rays), ref.accumulation,
+                 int(ref_stats.rays), exact=True)
+    too_many = torch.cuda.device_count() + 1
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            cli.main(["render", "--scene", "triangle", "--width", "16", "--height", "16",
+                      "--devices", str(too_many), "--out", "/dev/null"])
+        raise RuntimeError(f"--devices {too_many} did not exit")
+    except SystemExit as exc:
+        said = str(exc)
+    check("available" in said, f"--devices {too_many}: {said}")
+    print(f"[11 shard] --devices {too_many} on {torch.cuda.device_count()} card(s) exits: "
+          f"{said}", flush=True)
+    del eng, replicas, samples, step, single, sharded, ref
+
+    # (c) a span, the per-ray reference backend, a profiled frame
+    small = main_cfg.replace(width=480, height=270)
+    small_cam = Camera(small.camera).to_device(device)
+    (spanned, span_stats), span_ms = timed_frame(lambda: render_span(
+        v1, small, small_cam, create_render_state(small, device), 4))
+    state, rays = create_render_state(small, device), 0
+    for _ in range(4):
+        state, stats = render_frame(v1, small, small_cam, state)
+        rays += int(stats.rays)
+    check(spanned.accum_index == 4, "render_span(4) counts 4 frames")
+    frames_alike(f"[11 span] render_span(4) at 480x270 ({span_ms:.1f} ms) against 4 "
+                 "render_frame calls", spanned.accumulation, int(span_stats.rays),
+                 state.accumulation, rays, exact=True)
+    one = small.replace(max_bounce_count=1)
+    ref, ref_stats = render_frame(v1, one, small_cam, create_render_state(one, device))
+    before = launch_counts(kernels)
+    (per_ray, per_ray_stats), ms = timed_frame(lambda: render_frame(
+        v1, one.replace(traversal=TraversalMode.BVH_PER_RAY), small_cam,
+        create_render_state(one, device)))
+    n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
+    check(not any(n.values()), f"BVH_PER_RAY launched kernels: {n}")
+    frames_alike(f"[11 per-ray] BVH_PER_RAY 480x270, 1 bounce ({ms:.1f} ms, plain torch, no "
+                 "kernel) against BVH_KERNEL", per_ray.accumulation, int(per_ray_stats.rays),
+                 ref.accumulation, int(ref_stats.rays), exact=False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        with profile_to(tmp):
+            with trace_scope("chip_smoke 480x270 frame"):
+                render_frame(v1, small, small_cam, create_render_state(small, device))
+        traces = list(Path(tmp).glob("*.json"))
+        check(len(traces) == 1, f"profile_to wrote {len(traces)} traces")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        names = collections.Counter(str(e.get("name", "")) for e in events)
+        found = names["chip_smoke 480x270 frame"]
+        ours = sum(c for name, c in names.items() if "traverse_kernel" in name)
+        check(found >= 1 and ours >= 8, f"profile_to trace: scope {found}, kernels {ours}")
+        print(f"[11 profile] profile_to: {traces[0].stat().st_size} bytes, {len(events)} events, "
+              f"the trace_scope range {found}x, {ours} traversal kernel events", flush=True)
+    lap("11 rest", phase_start)
+    print(f"[time] chip_smoke: {time.perf_counter() - script_start:.1f} s in all", flush=True)
 
     lines = []
     for key, (err, ms, plain_ms) in result.items():
@@ -1644,6 +1826,12 @@ def main() -> int:
             in_frame_txt += (f"; hybrid: {hybrid_launches[key]} launches in its frames, "
                              f"{h_ms:.3f} ms over the {h_launches} launches of one replayed "
                              f"frame (bound {h_bound_ms:.4f} ms)")
+            b_ms, b_bound_ms, b_launches = big_in_frame[kind]
+            lines[-1].update(big_launches=big_launches[key], big_frame_ms=b_ms,
+                             big_frame_bound_ms=b_bound_ms)
+            in_frame_txt += (f"; 1M scenes: {big_launches[key]} launches in their frames, "
+                             f"{b_ms:.3f} ms over the {b_launches} launches of one replayed "
+                             f"v1 frame (bound {b_bound_ms:.4f} ms)")
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
               f"in the frames of its path{in_frame_txt}", flush=True)

@@ -98,7 +98,8 @@ def test_cli_glb_and_hdr_in_both_modes(tmp_path, engines, monkeypatch):
 
 def test_cli_needs_the_card_unless_told(tmp_path):
     """``--device`` defaults to the card; without one the CLI fails rather
-    than render on the host.  More devices than one are not ported."""
+    than render on the host.  ``--devices`` shards rows over host shards
+    with ``--device cpu``; the height must divide over them."""
     argv = ["render", "--scene", "triangle", "--out", str(tmp_path / "t.png"),
             "--width", "8", "--height", "8", "--spp", "1", "--brute"]
     if torch.cuda.is_available():
@@ -106,8 +107,9 @@ def test_cli_needs_the_card_unless_told(tmp_path):
     else:
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(argv)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        cli.main(argv + ["--device", "cpu", "--devices", "2"])
+    assert cli.main(argv + ["--device", "cpu", "--devices", "2"]) == 0
+    with pytest.raises(SystemExit, match="divisible"):
+        cli.main(argv + ["--device", "cpu", "--devices", "3"])
     with pytest.raises(SystemExit, match="not found"):
         cli.main(["render", "--scene", str(tmp_path / "missing.glb"), "--device", "cpu"])
 

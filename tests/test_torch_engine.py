@@ -100,7 +100,8 @@ def test_camera_move_resets_accumulation():
 def test_mode_toggle():
     """The T key toggles the mode; a hybrid frame draws (the display image
     goes into the accumulation, the frame count stays), and path tracing
-    draws again after the second toggle."""
+    draws again after the second toggle; with a mesh the hybrid frame is
+    the same."""
     eng = _engine()
     assert eng.render_mode == RenderMode.PATH_TRACING
     eng.inject_key(Key.T)
@@ -112,8 +113,13 @@ def test_mode_toggle():
     assert eng.render_mode == RenderMode.PATH_TRACING
     eng.run(1)
     assert eng.display_image().shape == (16, 16, 3)
-    with pytest.raises(NotImplementedError):
-        Engine(eng.cfg, cornell_box_scene(device="cpu"), mesh=object(), device="cpu")
+    # a mesh shards path-traced frames only: the hybrid mode ignores it
+    meshed = Engine(eng.cfg, cornell_box_scene(device="cpu"), mesh=["cpu"] * 2, device="cpu")
+    for e in (eng, meshed):
+        e.inject_key(Key.T)
+        e.run(1)
+    assert meshed.render_mode == RenderMode.HYBRID
+    assert np.array_equal(meshed.display_image(), eng.display_image())
 
 
 def test_engine_device_is_required():

@@ -229,7 +229,7 @@ def test_bvh2_chain_across_the_stack_split(levels, soup2):
 @pytest.mark.parametrize("levels", [2, 3, tw8.STACK_DEPTH // 7])
 def test_bvh8_chain_across_the_stack_split(levels, soup8):
     """A chain of full BVH8 nodes whose boxes every ray hits pushes 7
-    entries a level: 14 fit the shared-memory part of the stack, 21 and 63
+    entries a level: 14 fit the shared-memory part of the stack, 21 and 91
     spill past it."""
     leaf = int(encode_leaf(torch.tensor(0), torch.tensor(1)))
     child8 = torch.full((levels, 8), leaf, dtype=torch.int32)

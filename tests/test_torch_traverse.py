@@ -220,7 +220,7 @@ def test_stack_need_past_kernel_depth_raises(soup):
     """A tree deeper than the kernel's stack is refused, never traversed
     with dropped entries."""
     _, ts = soup
-    deep = _full_chain(ts.bvh, tw.STACK_DEPTH // 7 + 1)  # needs 70 > 64
+    deep = _full_chain(ts.bvh, tw.STACK_DEPTH // 7 + 1)  # needs 98 > 96
     with pytest.raises(ValueError, match="stack"):
         tw.build_table8(deep)
     with pytest.raises(ValueError, match="stack"):
@@ -229,8 +229,8 @@ def test_stack_need_past_kernel_depth_raises(soup):
 
 def test_worst_case_stack_counts_the_kernels_pushes(soup):
     """The bound is exact for this traversal: (non-empty children - 1) per
-    node on the deepest path, nothing for leaves.  A tree that needs 63 of
-    the 64 entries is accepted and traversed to full depth; the CPU twin
+    node on the deepest path, nothing for leaves.  A tree that needs 91 of
+    the 96 entries is accepted and traversed to full depth; the CPU twin
     (the kernel's code) and the plain version agree bit for bit."""
     leaf = int(encode_leaf(torch.tensor(0), torch.tensor(1)))
     small = np.array([[1, leaf, 0, 0, 0, 0, 0, 0],

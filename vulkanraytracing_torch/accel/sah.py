@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from vulkanraytracing_torch import native
-from vulkanraytracing_torch.accel.lbvh import LEAF_SIZE, _pack_tris, pad_nodes
-from vulkanraytracing_torch.scene.types import BVH, TraceGeometry
+from vulkanraytracing_torch.accel.lbvh import LEAF_SIZE, _pack_tris, build_scene_bvh, pad_nodes
+from vulkanraytracing_torch.scene.types import BVH, Scene, TraceGeometry
 
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -79,3 +79,11 @@ def build_bvh_sah(
     bvh = BVH(nodes=nodes, child_index=child, tris=tris, tri_flags=tri_flags,
               tri_order=order)
     return geometry, bvh
+
+
+def build_scene_bvh_sah(scene: Scene, leaf_size: int = LEAF_SIZE) -> Scene:
+    """The scene in SAH-tree order with its BVH: ``build_scene_bvh(scene,
+    leaf_size, builder="sah")``, so the tree also carries the BVH8 collapse
+    and, for a scene with cutouts, the cutout subset, as every build of the
+    port does.  Its 2-wide arrays are the JAX ``build_scene_bvh_sah``'s."""
+    return build_scene_bvh(scene, leaf_size, builder="sah")

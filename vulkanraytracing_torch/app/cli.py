@@ -8,8 +8,12 @@ which the sun is extracted; ``--mode hybrid`` bakes the IBL and draws one
 hybrid frame, ``--mode pt`` accumulates ``--spp`` path-traced frames.
 The default traversal is ``TraversalMode.BVH_KERNEL`` over an SAH tree,
 ``--brute`` the brute-force oracle.  ``compare`` prints the RMSE of two
-images (PNG or .npy), the parity metric.  The JAX package's ``bench``
-subcommand runs its JAX benchmark and has no counterpart here yet.
+images (PNG or .npy), the parity metric.  ``--devices N`` shards the
+path-traced frame's pixel rows over N devices (``parallel``): the first N
+cards, or with ``--device cpu`` N shards on the host (the JAX package's
+``VRT_NUM_CPU_DEVICES``); the image equals one device's bit for bit.  The
+JAX package's ``bench`` subcommand runs its JAX benchmark and has no
+counterpart here yet: it waits for the port's own benchmark.
 """
 
 from __future__ import annotations
@@ -30,9 +34,28 @@ def _device(args) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: --device cuda, but no CUDA device is available "
                          "(--device cpu runs on the host)")
-    if args.devices > 1:
-        raise NotImplementedError("multi-device rendering is not ported yet (--devices 1)")
     return device
+
+
+def _make_mesh(args, device: torch.device):
+    """--devices N -> the shard devices (None for one device): the first N
+    cards for ``--device cuda``, N host shards for ``--device cpu``.  The
+    height must divide over N (each shard takes whole row blocks)."""
+    from vulkanraytracing_torch.parallel import make_render_mesh
+
+    n = args.devices
+    if n <= 1:
+        return None
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise SystemExit(f"error: --devices {n} but only {have} available")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [device] * n
+    if args.height % n:
+        raise SystemExit(f"error: --height {args.height} must be divisible by --devices {n}")
+    return make_render_mesh(devices)
 
 
 def _attach_environment(scene, args):
@@ -107,6 +130,7 @@ def _engine(args, **cfg_kw) -> Engine:
     from vulkanraytracing_torch.scene.camera import Camera
 
     device = _device(args)
+    mesh = _make_mesh(args, device)
     scene, camera_cfg, animation = _build_scene(args, device)
     cfg = Config(
         width=args.width,
@@ -122,6 +146,7 @@ def _engine(args, **cfg_kw) -> Engine:
         cfg, scene, Camera(cfg.camera),
         instances=animation[0] if animation else None,
         animation=animation[1] if animation else None,
+        mesh=mesh,
         device=device,
     )
 
@@ -192,6 +217,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="vulkanraytracing_torch",
         description="path tracer and hybrid renderer in PyTorch + CUDA",
+        epilog="The JAX package's 'bench' subcommand is not ported yet: it waits for "
+               "the port's own benchmark.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -205,7 +232,8 @@ def main(argv=None) -> int:
         p.add_argument("--mode", choices=["pt", "hybrid"], default="pt")
         p.add_argument("--brute", action="store_true", help="skip the BVH")
         p.add_argument("--devices", type=int, default=1,
-                       help="devices to shard pixel rows over (only 1 is ported)")
+                       help="shard pixel rows over the first N devices (with --device "
+                            "cpu: N shards on the host)")
         p.add_argument("--device", default="cuda",
                        help="torch device to render on (default: the card)")
 

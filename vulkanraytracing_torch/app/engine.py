@@ -19,8 +19,12 @@ with the alpha re-trace over the whole scene, as their trees are built
 on the device and carry no subset.
 
 Every tensor lives on ``device``, a required keyword: there is no default
-that could move a scene off the card and onto the plain versions.  Not
-ported yet: the multi-device ``mesh``.
+that could move a scene off the card and onto the plain versions.  With a
+``mesh`` (``parallel.make_render_mesh``, its first device ``device``),
+path-traced frames shard their rows over the mesh's devices
+(``parallel.shard_render_frame``, bit-equal to one device); a moving frame
+hands its refitted scene to every other device once.  The hybrid mode
+ignores the mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from vulkanraytracing_torch.app.events import EventBus, EventType, Key, KeyActio
 from vulkanraytracing_torch.app.systems import CameraSystem, StatsSystem, System
 from vulkanraytracing_torch.config import Config, RenderMode
 from vulkanraytracing_torch.hybrid import render_hybrid
+from vulkanraytracing_torch.parallel import make_render_mesh, replicate_scene, shard_render_frame
 from vulkanraytracing_torch.pt.render import (
     RenderState,
     create_render_state,
@@ -58,14 +63,16 @@ class Engine:
         camera: Optional[Camera] = None,
         instances: Optional[tlas.InstanceSoup] = None,  # two-level scene
         animation=None,  # frame_index -> (I, 4, 4) world transforms (numpy)
-        mesh=None,       # multi-device pixel sharding: not ported yet
+        mesh=None,       # shard devices (parallel.make_render_mesh): pixel rows
         *,
         device: torch.device | str,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device rendering is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = None if mesh is None else make_render_mesh(mesh)
+        if self.mesh is not None and self.mesh[0] != make_render_mesh([self.device])[0]:
+            raise ValueError(f"the mesh's first device {self.mesh[0]} is not the Engine's "
+                             f"device {self.device}")
         self.scene = scene.to(self.device)
         self.bus = EventBus()
         # Animated instances: the soup is transformed, built and permuted
@@ -85,6 +92,7 @@ class Engine:
             self._soup_sorted = tlas.permute_soup(instances, order)
             self.scene = self.scene._replace(geometry=geom, bvh=bvh, alpha=None)
             self._last_transforms = t0
+        self._replicas = (None, None)  # (the scene they copy, its copies by device)
         self.camera = camera or Camera(cfg.camera)
         self.render_mode = cfg.render_mode
         self.timer = Timer()
@@ -198,7 +206,14 @@ class Engine:
             image = render_hybrid(self.scene, self.cfg, camera)
             self.state = RenderState(accumulation=image, accum_index=self.state.accum_index)
             return
-        self.state, stats = render_frame(self.scene, self.cfg, camera, self.state)
+        if self.mesh is not None:
+            if self._replicas[0] is not self.scene:
+                # a new (e.g. refitted) scene goes to every other device once
+                self._replicas = (self.scene, replicate_scene(self.scene, self.mesh))
+            self.state, stats = shard_render_frame(self._replicas[1], self.cfg, camera,
+                                                   self.state, self.mesh)
+        else:
+            self.state, stats = render_frame(self.scene, self.cfg, camera, self.state)
         rays = float(stats.rays)  # a readback every frame, as the reference
         self.total_rays += rays
         self.ray_counter.add(rays)

@@ -23,13 +23,17 @@ class TraversalMode(enum.Enum):
     """Which trace backend to use: interchangeable implementations of the
     ``Hit`` contract (``ops.intersect.Hit``), as the JAX package's switch.
     The kernels run CUDA on the card and their plain torch versions for
-    CPU tensors.  The packet kernels keep their TPU counterparts' window
-    (a hit exactly at t_max is not committed; equal-t ties follow visit
-    order), the others commit it and break ties to the lowest id."""
+    CPU tensors.  The packet kernels and ``BVH_PER_RAY`` keep their JAX
+    counterparts' window (a hit exactly at t_max is not committed; equal-t
+    ties follow visit order), the others commit it and break ties to the
+    lowest id."""
 
     BRUTE_FORCE = "brute_force"  # O(R*T) Moller-Trumbore oracle, plain torch
     BVH = "bvh"                  # the JAX package's BVH: packet traversal
     #                              in plain torch (ops.traverse_packet)
+    BVH_PER_RAY = "bvh_per_ray"  # BVH + per-ray lockstep traversal (oracle),
+    #                              plain torch (ops.traverse), with the JAX
+    #                              module's window and first-tested ties
     BVH_KERNEL = "bvh_kernel"    # the JAX package's BVH_PALLAS: the BVH8
     #                              kernel when the BVH has its 8-wide
     #                              collapse, the BVH2 kernel otherwise

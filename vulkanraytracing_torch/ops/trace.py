@@ -8,6 +8,8 @@ compile-time ``PathTracingMode`` backend switch.
 - ``BRUTE_FORCE``: the O(R*T) oracle (``ops.intersect``); a scene with no
   BVH is traced this way in every mode, as in the JAX package;
 - ``BVH``: packet traversal in plain torch (``ops.traverse_packet``);
+- ``BVH_PER_RAY``: per-ray lockstep traversal in plain torch
+  (``ops.traverse``), the JAX package's reference backend;
 - ``BVH_KERNEL``: the 8-wide kernel (``ops.traverse_wide8``) when the BVH
   carries its 8-wide collapse, the 2-wide kernel (``ops.traverse_wide``)
   otherwise, which is every LBVH build and TLAS refit, as the JAX
@@ -41,6 +43,7 @@ from vulkanraytracing_torch.core import math3d
 from vulkanraytracing_torch.ops import (
     intersect,
     reorder as reorder_mod,
+    traverse,
     traverse_packet,
     traverse_pallas,
     traverse_subpacket,
@@ -67,6 +70,8 @@ def _backend(mode: TraversalMode, bvh: BVH):
     """(intersect_closest, intersect_any) of the mode's backend."""
     if mode == TraversalMode.BVH:
         return traverse_packet.intersect_closest_packet, traverse_packet.intersect_any_packet
+    if mode == TraversalMode.BVH_PER_RAY:
+        return traverse.intersect_closest_bvh, traverse.intersect_any_bvh
     if mode == TraversalMode.BVH_KERNEL:
         module = traverse_wide8 if bvh.nodes8 is not None else traverse_wide
     elif mode == TraversalMode.BVH_SUBPACKET:

@@ -37,9 +37,13 @@ from vulkanraytracing_torch.accel.lbvh import decode_leaf
 from vulkanraytracing_torch.ops.intersect import BIG_T, DET_EPS, Hit, moller_trumbore
 from vulkanraytracing_torch.scene.types import BVH
 
-# Per-ray stack entries; the kernel is compiled with this depth and
-# build_table8 refuses trees whose worst case needs more.
-STACK_DEPTH = 64
+# Per-ray stack entries.  Every traversal kernel (BVH8 here; BVH2 and the
+# packet kernels import it) is compiled with this depth, and build_table8 /
+# build_table2 refuse trees whose worst case needs more.  The BVH8 trees of
+# the v1 and real scenes at 1-2 million triangles need 64-67 (SAH and
+# LBVH), their 2-wide trees at most 29: 96 leaves a margin.  Only the
+# entries past the 16 in shared memory grow (local memory on the card).
+STACK_DEPTH = 96
 TINY = 1e-30
 _INT32_MAX = 2**31 - 1
 

@@ -19,7 +19,9 @@ variant and kernel: ptxas's registers and spilled bytes, then the 8
 launches in frame order (closest, any-hit of bounces 0-3) and their sums.
 
 A variant is ``name=value[,name=value...]``, or ``base`` for the sources
-as they are.  The per-ray kernels' constants are in
+as they are.  ``VRT_STACK_DEPTH=n`` (per-ray kernels only) builds with
+another stack depth than the package's ``STACK_DEPTH``; the recorded
+frame's trees must fit both.  The per-ray kernels' constants are in
 ``csrc/traverse_common.cuh`` (``kRefillBelow``, ``kLeaveLoopBelow``,
 ``kMinBlocksPerSm``, ``kBlock``) and ``kFastStack`` (both kernels'); the
 packet kernels' in ``csrc/packet_common.cuh`` (``kRaysPerLane``: 1, 2, 4;
@@ -99,8 +101,10 @@ def variant_sources(constants: dict[str, int]) -> Path:
     return out
 
 
-def build(which: str, src: Path):
-    """The kernel library of ``which`` built from the sources in ``src``."""
+def build(which: str, src: Path, depth: int | None = None):
+    """The kernel library of ``which`` built from the sources in ``src``
+    with ``depth`` stack entries (the package's ``STACK_DEPTH`` by
+    default)."""
     import ctypes
 
     from vulkanraytracing_torch import native
@@ -108,9 +112,11 @@ def build(which: str, src: Path):
     from vulkanraytracing_torch.ops.traverse_wide8 import STACK_DEPTH
 
     if which in KERNELS[True]:
+        if depth is not None:
+            raise SystemExit("VRT_STACK_DEPTH variants are for the per-ray kernels")
         return packet_lockstep.kernel_library(which, src)
-    cmd = [native.nvcc_path(), *native.NVCC_FLAGS, f"-DVRT_STACK_DEPTH={STACK_DEPTH}",
-           f"-I{src}"]
+    cmd = [native.nvcc_path(), *native.NVCC_FLAGS,
+           f"-DVRT_STACK_DEPTH={STACK_DEPTH if depth is None else depth}", f"-I{src}"]
     path = native.build_library(
         f"{which}_traverse", cmd, [src / f"{which}_traverse.cu"],
         (src / f"{which}_traverse.cuh", src / "traverse_common.cuh"))
@@ -199,12 +205,13 @@ def main() -> int:
     names = [a for a in sys.argv[1:] if a != "--packet"] or DEFAULT_VARIANTS[packet]
     kernels = KERNELS[packet]
     variants = [parse_variant(name) for name in names]
+    depths = [constants.pop("VRT_STACK_DEPTH", None) for constants in variants]
     device = torch.device("cuda", 0)
     print(f"{torch.cuda.get_device_name(0)}; kernels: {' '.join(kernels)}; variants: "
           f"{' '.join(names)}", flush=True)
     t0 = time.perf_counter()
     sources = [variant_sources(constants) for constants in variants]
-    jobs = [(which, src) for src in sources for which in kernels]
+    jobs = [(which, src, depth) for src, depth in zip(sources, depths) for which in kernels]
     with ThreadPoolExecutor(8) as pool:  # a variant named twice is built once
         built = {job: pool.submit(build, *job) for job in dict.fromkeys(jobs)}
     libs = [built[job].result() for job in jobs]
