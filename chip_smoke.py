@@ -63,7 +63,7 @@ Run from the repository root.  Phases, each printing its result:
    through both packet kernels, kernel ms and bound (the tests of a launch
    counted once, by the BVH2 plain version), an unsorted frame's launches
    likewise, kernel ms only, and every launch of a 480x270 frame (1/16 of
-   the rays) held to both plain versions; then one frame under
+   the rays, 2 bounces) held to both plain versions; then one frame under
    ``TraversalMode.BVH`` (the plain packet backend, which launches no
    kernel) with the depth cut to 1 bounce, held to the same gate against a
    ``BVH_KERNEL`` frame of that depth;
@@ -117,7 +117,16 @@ Run from the repository root.  Phases, each printing its result:
    4 frames, a 480x270 frame at 1 bounce under ``BVH_PER_RAY`` (plain
    torch, no kernel) against ``BVH_KERNEL`` at phase 8's gate, and
    ``utils.profiling.profile_to`` around a frame inside a ``trace_scope``,
-   the scope's range and the traversal kernels found in the written trace.
+   the scope's range and the traversal kernels found in the written trace;
+12. the bench entry point: ``python -m vulkanraytracing_torch bench`` in
+   a subprocess, v1 through its .glb (written to a temporary directory and
+   read back) with 5 frames, then the real workload without the .glb and 3
+   frames; each exits with 0 and its last line has the JAX bench's keys,
+   it launched the BVH8 kernel's closest and any specializations over its
+   measured frames, its best frame is at most 1.25x the median frame ms of
+   phase 5 (v1) or 9 (real), and each frame's rays are within 1% of those
+   phases' mean; ``bench --devices N`` past the card count exits non-zero
+   with its message before it builds a scene.
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -136,8 +145,9 @@ the same sum over an unsorted frame (BVH8 and the packet kernels); and
 the BVH8 entries ``real_launches``, ``real_frame_ms``,
 ``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9,
 ``hybrid_launches``, ``hybrid_frame_ms`` and ``hybrid_frame_bound_ms``
-from phase 10, and ``big_launches``, ``big_frame_ms`` and
-``big_frame_bound_ms`` from phase 11's 1M-triangle frames.
+from phase 10, ``big_launches``, ``big_frame_ms`` and
+``big_frame_bound_ms`` from phase 11's 1M-triangle frames, and
+``bench_launches`` (v1 and real) from phase 12's measured frames.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -160,6 +170,7 @@ import io
 import json
 import math
 import operator
+import os
 import re
 import shutil
 import subprocess
@@ -206,6 +217,15 @@ RAY_OUT_BYTES = {"closest": 17, "any": 1}
 # moves only on exact ties and at exactly t_max
 FRAME_RAY_TOL = 1e-3
 FRAME_PIXEL_SHARE = 1e-3
+# the bench against the same workload's frames in this script: its best
+# frame at most 1.25x their median ms (another process, the same path), its
+# rays within 1% (the .glb round trip regenerates the tangents, which moves
+# the noise, not the content)
+BENCH_MS_RATIO = 1.25
+BENCH_RAY_TOL = 1e-2
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mean", "median", "frames",
+              "time_to_1024spp_s", "workload", "device"}
+ROOT = Path(__file__).resolve().parent
 
 
 def check(ok: bool, what: str) -> None:
@@ -869,6 +889,36 @@ def cli_stdout(cli, argv) -> tuple[int, str]:
     return rc, out.getvalue()
 
 
+def bench_command(extra_env: dict, *args: str) -> tuple[list[str], dict]:
+    """``python -m vulkanraytracing_torch bench`` from the checkout's root
+    with ``extra_env`` on top of this process's environment: the argv and
+    env for ``subprocess``."""
+    return ([sys.executable, "-m", "vulkanraytracing_torch", "bench", *args],
+            {**os.environ, **extra_env})
+
+
+def bench_run(label: str, extra_env: dict) -> tuple[dict, list, list, dict]:
+    """Run the bench in a subprocess; its report, each measured frame's ms
+    and rays, and its BVH8 launches over the measured frames.  Fails unless
+    it exits with 0 and its last line has the JAX bench's keys."""
+    argv, env = bench_command(extra_env)
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stderr.splitlines():
+        print(f"[12 bench] {label}: {line}", flush=True)
+    check(proc.returncode == 0, f"bench {label}: exit code {proc.returncode}")
+    report = json.loads(proc.stdout.splitlines()[-1])
+    check(set(report) == BENCH_KEYS, f"bench {label}: keys {sorted(report)}")
+    frames = [m.groups() for m in re.finditer(r"^frame \d+: ([\d.]+) ms, (\d+) rays",
+                                              proc.stderr, re.M)]
+    check(len(frames) == report["frames"] > 0, f"bench {label}: {len(frames)} frame lines")
+    found = re.search(r"bvh8 launches over the \d+ measured frames: closest (\d+), any (\d+)",
+                      proc.stderr)
+    check(found is not None, f"bench {label}: no launch line")
+    launches = {"closest": int(found.group(1)), "any": int(found.group(2))}
+    return report, [float(ms) for ms, _ in frames], [int(r) for _, r in frames], launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save-dir", type=Path, default=None)
@@ -995,7 +1045,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     tw.LAUNCHES.clear()
     tw2.LAUNCHES.clear()
-    frame_ms = []
+    frame_ms, main_rays = [], []
     main_cfg, main_camera = cfg, camera
     for frame in range(3):
         before = dict(tw.LAUNCHES)
@@ -1006,6 +1056,7 @@ def main() -> int:
         ms = (time.perf_counter() - t0) * 1e3
         frame_ms.append(ms)
         rays = int(stats.rays)
+        main_rays.append(rays)
         n_closest = tw.LAUNCHES["closest"] - before.get("closest", 0)
         n_any = tw.LAUNCHES["any"] - before.get("any", 0)
         check(n_closest >= 4 and n_any >= 4,
@@ -1257,8 +1308,9 @@ def main() -> int:
     # one more BVH_SUBPACKET frame with every traversal launch recorded, then
     # each alone through both packet kernels, over the v1 tree's records:
     # at 1920x1080 kernel ms and bounds (sorted, then an unsorted frame's
-    # kernel ms), and at 480x270 (1/16 of the rays) kernel = plain version
-    # on every launch
+    # kernel ms), and at 480x270 (1/16 of the rays) with the depth cut to 2
+    # bounces (the primary rays and one incoherent bounce; the script's time
+    # limit) kernel = plain version on every launch
     packet_modules = {name: kernels[name][0] for name in packet}
     records = operator.attrgetter("records")
     cfg = main_cfg.replace(traversal=TraversalMode.BVH_SUBPACKET)
@@ -1275,7 +1327,7 @@ def main() -> int:
         print(f"[8 packet] {name} in frame, sorted / unsorted: " + "; ".join(
             f"{kind} {in_frame[name][kind][0]:.3f} / {unsorted[name][kind][0]:.3f} ms"
             for kind in ("closest", "any")), flush=True)
-    small = cfg.replace(width=480, height=270)
+    small = cfg.replace(width=480, height=270, max_bounce_count=2)
     calls = record_frame(lambda: render_frame(v1, small, Camera(small.camera).to_device(device),
                                               create_render_state(small, device)))
     replay(packet_modules, tw2, tw2.get_table2, records, calls, "[8 replay 480x270]")
@@ -1335,7 +1387,7 @@ def main() -> int:
     state = create_render_state(cfg, device)
     for module, _ in kernels.values():
         module.LAUNCHES.clear()
-    real_ms = []
+    real_ms, real_rays = [], []
     for frame in range(3):
         before = launch_counts(kernels)
         with TableCounts(name_of) as by_table:
@@ -1343,6 +1395,7 @@ def main() -> int:
                 lambda: render_frame(real, cfg, main_camera, state))
         real_ms.append(ms)
         rays = int(stats.rays)
+        real_rays.append(rays)
         n = {k: c - before[k] for k, c in launch_counts(kernels).items()}
         split = by_table.counts
         check(not any(c for k, c in n.items() if not k.startswith("bvh8")),
@@ -1791,7 +1844,50 @@ def main() -> int:
         check(found >= 1 and ours >= 8, f"profile_to trace: scope {found}, kernels {ours}")
         print(f"[11 profile] profile_to: {traces[0].stat().st_size} bytes, {len(events)} events, "
               f"the trace_scope range {found}x, {ours} traversal kernel events", flush=True)
-    lap("11 rest", phase_start)
+    phase_start = lap("11 rest", phase_start)
+
+    # -- 12. the bench entry point, in subprocesses -------------------------
+    torch.cuda.empty_cache()
+    too_many = str(torch.cuda.device_count() + 1)
+    argv, env = bench_command({}, "--devices", too_many)
+    refused = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+    bench_launches = {}
+    with contextlib.ExitStack() as stack:
+        stack.callback(lambda: refused.poll() is None and refused.kill())
+        glb_dir = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_bench_"))
+        cases = (("v1", {"VRT_BENCH_FRAMES": "5", "VRT_BENCH_GLB_DIR": glb_dir},
+                  frame_ms, main_rays, "phase 5"),
+                 ("real", {"VRT_BENCH_WORKLOAD": "real", "VRT_BENCH_NO_LOADER": "1",
+                           "VRT_BENCH_FRAMES": "3"}, real_ms, real_rays, "phase 9"))
+        for workload, extra, ref_ms, ref_rays, ref in cases:
+            report, ms, rays, n = bench_run(workload, extra)
+            if workload == "v1":
+                out, err = refused.communicate(timeout=300)
+                check(refused.returncode != 0 and "requested but only" in err
+                      and "scene:" not in err and json.loads(out.splitlines()[-1])["partial"],
+                      f"bench --devices {too_many}: exit code {refused.returncode}, {err!r}")
+                print(f"[12 bench] --devices {too_many} on {torch.cuda.device_count()} card(s) "
+                      f"exits {refused.returncode} before building a scene: "
+                      f"{err.strip().splitlines()[-1]}", flush=True)
+            check(report["workload"] == workload, f"bench {workload}: {report['workload']}")
+            check(n["closest"] > 0 and n["any"] > 0, f"bench {workload}: BVH8 launches {n}")
+            median = float(np.median(ref_ms))
+            check(min(ms) <= BENCH_MS_RATIO * median,
+                  f"bench {workload}: best frame {min(ms):.1f} ms against {ref}'s median "
+                  f"{median:.1f} ms")
+            mean_rays = sum(ref_rays) / len(ref_rays)
+            check(all(abs(r - mean_rays) <= BENCH_RAY_TOL * mean_rays for r in rays),
+                  f"bench {workload}: rays {rays} against {ref}'s {ref_rays}")
+            bench_launches[workload] = n
+            print(f"[12 bench] {workload}: best {min(ms):.1f} ms, median "
+                  f"{float(np.median(ms)):.1f} ms ({ref}: median {median:.1f} ms, ratio "
+                  f"{min(ms) / median:.3f}); rays {min(rays)}-{max(rays)} ({ref}: "
+                  f"{min(ref_rays)}-{max(ref_rays)}); BVH8 launches closest {n['closest']}, "
+                  f"any {n['any']}", flush=True)
+            print(f"[12 bench] {workload} report: {json.dumps(report)}", flush=True)
+    print(f"[12 bench] {smi}", flush=True)
+    lap("12 bench", phase_start)
     print(f"[time] chip_smoke: {time.perf_counter() - script_start:.1f} s in all", flush=True)
 
     lines = []
@@ -1832,6 +1928,9 @@ def main() -> int:
             in_frame_txt += (f"; 1M scenes: {big_launches[key]} launches in their frames, "
                              f"{b_ms:.3f} ms over the {b_launches} launches of one replayed "
                              f"v1 frame (bound {b_bound_ms:.4f} ms)")
+            lines[-1]["bench_launches"] = {w: n[kind] for w, n in bench_launches.items()}
+            in_frame_txt += "; bench: " + ", ".join(
+                f"{w} {n[kind]} launches" for w, n in bench_launches.items())
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
               f"in the frames of its path{in_frame_txt}", flush=True)

@@ -174,19 +174,19 @@ def _brdf_lut_float64(size, n):
 
 
 def test_brdf_lut_matches_jax():
-    """Within 1e-5 of a float64 evaluation of the estimator at every entry,
-    and of the JAX package's table wherever that table is itself within
-    1e-5 of the float64 evaluation: at NoV = roughness = 1/32 (a2 ~ 1e-6)
-    its float32 1 + (a2 - 1) e1 cancels and leaves it 2.3e-5 off, an
-    entry the port computes without the cancellation."""
+    """Within 1e-5 of the JAX package's table at every entry (the same
+    GGX samples, ``pt.bsdf.importance_sample_ggx``), and of a float64
+    evaluation of the estimator wherever the JAX table is itself within
+    1e-5 of it: at NoV = roughness = 1/32 (a2 ~ 1e-6) the float32
+    1 + (a2 - 1) e1 cancels and leaves both tables 2.3e-5 off."""
     got = tibl.compute_brdf_lut(16, 512, device="cpu").numpy()
     want = np.asarray(jibl.compute_brdf_lut(16, 512))
     exact = _brdf_lut_float64(16, 512)
     assert got.shape == (16, 16, 2)
-    np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     jax_ok = np.abs(want - exact) <= 1e-5 + 1e-5 * np.abs(exact)
     assert jax_ok.sum() == 511 and not jax_ok[0, 0, 1]
-    np.testing.assert_allclose(got[jax_ok], want[jax_ok], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[jax_ok], exact[jax_ok], rtol=1e-5, atol=1e-5)
 
 
 def test_brdf_lut_sample_blocks_keep_the_sums(monkeypatch):

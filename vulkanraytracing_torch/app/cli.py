@@ -1,4 +1,4 @@
-"""Command-line interface: render / view / compare.
+"""Command-line interface: render / view / bench / compare.
 
 Counterpart of ``vulkanraytracing_tpu/app/cli.py``, with the same flags
 and one more, ``--device`` (the card unless ``--device cpu``; asking for
@@ -11,9 +11,10 @@ The default traversal is ``TraversalMode.BVH_KERNEL`` over an SAH tree,
 images (PNG or .npy), the parity metric.  ``--devices N`` shards the
 path-traced frame's pixel rows over N devices (``parallel``): the first N
 cards, or with ``--device cpu`` N shards on the host (the JAX package's
-``VRT_NUM_CPU_DEVICES``); the image equals one device's bit for bit.  The
-JAX package's ``bench`` subcommand runs its JAX benchmark and has no
-counterpart here yet: it waits for the port's own benchmark.
+``VRT_NUM_CPU_DEVICES``); the image equals one device's bit for bit.
+``bench`` runs ``vulkanraytracing_torch.bench`` (Mrays/s of the 1080p
+Sponza-like frame, one JSON line) with the same ``--devices`` and
+``--device``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vulkanraytracing_torch import bench
 from vulkanraytracing_torch.app.engine import Engine
 
 
@@ -217,8 +219,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="vulkanraytracing_torch",
         description="path tracer and hybrid renderer in PyTorch + CUDA",
-        epilog="The JAX package's 'bench' subcommand is not ported yet: it waits for "
-               "the port's own benchmark.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -251,6 +251,10 @@ def main(argv=None) -> int:
     view = sub.add_parser("view", help="interactive terminal viewer (WASD fly camera)")
     common(view, 256, 144)
     view.set_defaults(fn=cmd_view)
+
+    b = sub.add_parser("bench", help="run the Mrays/s benchmark (one JSON line)")
+    bench.add_arguments(b)
+    b.set_defaults(fn=bench.run)
 
     cmp_ = sub.add_parser("compare", help="image RMSE (parity metric)")
     cmp_.add_argument("a")

@@ -20,11 +20,7 @@ computes them outside any Pallas kernel.  Two things differ from it:
 The BRDF table keeps the JAX package's estimator (Hammersley points, GGX,
 Schlick visibility with k = a/2).  Its 4,096-step scan becomes blocks of
 samples evaluated at once and then added one sample at a time, so that
-each table entry sums its samples in the scan's order.  The GGX samples'
-cosine is written without the cancellation of the shared
-``importance_sample_ggx`` (``_ggx_half_vectors``): at the lowest
-roughness the float32 form loses the sample's small sine, which decides
-the grazing entries of the table.
+each table entry sums its samples in the scan's order.
 """
 
 from __future__ import annotations
@@ -43,7 +39,7 @@ from vulkanraytracing_torch.env.panorama import (
     panorama_uv,
     sample_bilinear_wrap,
 )
-from vulkanraytracing_torch.pt.bsdf import vis_schlick
+from vulkanraytracing_torch.pt.bsdf import importance_sample_ggx, vis_schlick
 from vulkanraytracing_torch.scene.types import Environment
 
 # float32 elements of one (rows, T) block of the convolutions (512 MiB)
@@ -152,21 +148,6 @@ def compute_reflection_cube(panorama: Tensor, size: int = 512, mip_count: int = 
     return tuple(mips)
 
 
-def _ggx_half_vectors(e: Tensor, a2: Tensor) -> Tensor:
-    """``pt.bsdf.importance_sample_ggx`` with cos^2 = (1 - e1) / ((1 - e1) +
-    a2 e1), the same quantity without the cancellation in 1 + (a2 - 1) e1
-    when a2 is near 0 (the table's lowest roughness rows, where a2 ~ 1e-6
-    and the sample's small sine decides the grazing entries)."""
-    phi = 2.0 * PI * e[..., 0]
-    rest = 1.0 - e[..., 1]
-    denom = rest + a2 * e[..., 1]
-    cos_theta = torch.sqrt(torch.clamp_min(rest / denom, 0.0))
-    sin_theta = torch.sqrt(torch.clamp_min(a2 * e[..., 1] / denom, 0.0))
-    return torch.stack(
-        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
-    )
-
-
 def compute_brdf_lut(size: int = 256, sample_count: int = 4096,
                      device: torch.device | str = "cuda") -> Tensor:
     """Split-sum specular BRDF table (size, size, 2): x = NoV, y =
@@ -186,7 +167,7 @@ def compute_brdf_lut(size: int = 256, sample_count: int = 4096,
     for start in range(0, sample_count, step):
         i = torch.arange(start, min(start + step, sample_count), device=device)
         xi = math3d.hammersley(i, sample_count)[:, None, :]  # (B, 1, 2)
-        h = _ggx_half_vectors(xi, a2)  # (B, P, 3)
+        h = importance_sample_ggx(xi, a2, fused=True)  # (B, P, 3)
         voh_raw = math3d.dot(v, h)
         l = 2.0 * voh_raw[..., None] * h - v
         nol = torch.clamp_min(l[..., 2], 0.0)

@@ -75,13 +75,26 @@ def vis_schlick(a: Tensor, nov: Tensor, nol: Tensor) -> Tensor:
     return 0.25 * math3d.rcp(vis_v * vis_l)
 
 
-def importance_sample_ggx(e: Tensor, a2: Tensor) -> Tensor:
-    """GGX half-vector sample in tangent space."""
+def importance_sample_ggx(e: Tensor, a2: Tensor, fused: bool = False) -> Tensor:
+    """GGX half-vector sample in tangent space.
+
+    ``fused=True`` rounds as XLA compiles the JAX package's jitted BRDF
+    table: 1 + (a2 - 1) e1 as one fused multiply-add (the float32 product
+    is exact in float64) and the squared cosine reused for the sine
+    (sqrt(x)^2 -> x).  Where a2 is near 0 the denominator cancels, and
+    those roundings decide the table's grazing entries.  The default
+    rounds each operation alone, as the JAX function does op by op.
+    """
     phi = 2.0 * PI * e[..., 0]
-    cos_theta = torch.sqrt(
-        torch.clamp_min((1.0 - e[..., 1]) / (1.0 + (a2 - 1.0) * e[..., 1]), 0.0)
-    )
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    e1 = e[..., 1]
+    if fused:
+        denom = (1.0 + (a2 - 1.0).double() * e1.double()).float()
+        cos2_theta = torch.clamp_min((1.0 - e1) / denom, 0.0)
+        cos_theta = torch.sqrt(cos2_theta)
+    else:
+        cos_theta = torch.sqrt(torch.clamp_min((1.0 - e1) / (1.0 + (a2 - 1.0) * e1), 0.0))
+        cos2_theta = cos_theta * cos_theta
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos2_theta, 0.0))
     return torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
     )
