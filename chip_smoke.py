@@ -5,7 +5,8 @@
 
 Run from the repository root.  Phases, each printing its result:
 
-1. device: the card's name and ``nvidia-smi`` name and power limit;
+1. device: the card's name and ``nvidia-smi`` name and power limit, and
+   whether Pillow is installed (the texture pool does not use it);
 2. build: the four traversal kernels (BVH8, BVH2, subpacket and shared
    cursor; nvcc, sm_90a) and the native BVH builders, from the sources in
    the checkout, all at once; ptxas's registers, stack, spills and shared
@@ -70,9 +71,12 @@ Run from the repository root.  Phases, each printing its result:
 9. the real workload: ``sponza_like_scene(262144, workload="real")``
    (textures, alpha-tested foliage, an HDR sky), SAH build, BVH8 collapse
    and the cutout subset's tree, with its triangle and cutout counts, its
-   texture pool's bytes and the build seconds; 3 frames at 1920x1080 with
-   4 bounces through ``BVH_KERNEL`` with ms, rays, Mrays/s and the BVH8
-   launches split by table (the opaque view, the subset); a profiled frame,
+   texture pool's bytes and the build seconds, and the pool's sha256 held
+   to the digest of the JAX package's pool of the same images
+   (``REAL_POOL_SHA256``: the mips are Pillow's bilinear ones); 3 frames
+   at 1920x1080 with 4 bounces through ``BVH_KERNEL`` with ms, rays,
+   Mrays/s and the BVH8 launches split by table (the opaque view, the
+   subset); a profiled frame,
    and one more with named ranges (texture sampling, ``_hit_alpha``, the
    alpha rounds, traversal, the sort) and the device time inside each;
    frame 0 again under ``VRT_DEBUG_NO_SORT=1``, bit-equal; a recorded
@@ -126,7 +130,16 @@ Run from the repository root.  Phases, each printing its result:
    measured frames, its best frame is at most 1.25x the median frame ms of
    phase 5 (v1) or 9 (real), and each frame's rays are within 1% of those
    phases' mean; ``bench --devices N`` past the card count exits non-zero
-   with its message before it builds a scene.
+   with its message before it builds a scene;
+13. the evidence tools (``vulkanraytracing_torch.tools``) in their small
+   modes, four subprocesses on the card started together, each writing
+   into a temporary directory: ``parity_artifact`` (64x64, 8 spp),
+   ``measure_t1024`` (64x64, 16 spp, 20,000 triangles), ``hybrid_artifact``
+   (256x144 at the 20,000-triangle target) and ``measure_aniso``; each exits with 0, its
+   report names the card as ``nvidia-smi`` does, its gates pass (the parity
+   cases at RMSE 1e-3 and the Cornell box at 0; the hybrid frame against
+   the CPU's at 1e-3; the aniso RMSEs within 2% of the JAX package's
+   ``artifacts/aniso/report.json``) and it launched the BVH8 kernel.
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -146,8 +159,9 @@ the BVH8 entries ``real_launches``, ``real_frame_ms``,
 ``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9,
 ``hybrid_launches``, ``hybrid_frame_ms`` and ``hybrid_frame_bound_ms``
 from phase 10, ``big_launches``, ``big_frame_ms`` and
-``big_frame_bound_ms`` from phase 11's 1M-triangle frames, and
-``bench_launches`` (v1 and real) from phase 12's measured frames.
+``big_frame_bound_ms`` from phase 11's 1M-triangle frames,
+``bench_launches`` (v1 and real) from phase 12's measured frames, and
+``tools_launches`` (each tool) from phase 13.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -166,6 +180,8 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import hashlib
+import importlib.metadata
 import io
 import json
 import math
@@ -226,6 +242,21 @@ BENCH_RAY_TOL = 1e-2
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mean", "median", "frames",
               "time_to_1024spp_s", "workload", "device"}
 ROOT = Path(__file__).resolve().parent
+# the real workload's texture pool as the JAX package builds it (its
+# build_texture_pool of sponza_real_images(7), whose mips Pillow makes):
+# sha256 over the texels, then the offset, width and height tables (int32)
+REAL_POOL_SHA256 = "22aebe03db3fdd612203dd31f49f326757f65dc302a95fdb3da79ce6a5d040b7"
+# the evidence tools in their small modes: (extra environment, arguments)
+TOOL_RUNS = {
+    "parity_artifact": ({"VRT_PARITY_SMALL": "1"}, []),
+    "measure_t1024": ({"VRT_T1024_TRIS": "20000"}, ["64", "16"]),
+    "hybrid_artifact": ({"VRT_HYBRID_SMALL": "1"}, []),
+    "measure_aniso": ({}, []),
+}
+# the aniso RMSEs against the JAX package's report (computed on a CPU)
+ANISO_REPORT = ROOT / "artifacts" / "aniso" / "report.json"
+ANISO_REL_TOL = 0.02
+ANISO_KEYS = ("rmse_trilinear_vs_aniso16", "rmse_aniso4_vs_aniso16", "rmse_trilinear_vs_aniso4")
 
 
 def check(ok: bool, what: str) -> None:
@@ -889,6 +920,38 @@ def cli_stdout(cli, argv) -> tuple[int, str]:
     return rc, out.getvalue()
 
 
+def pool_digest(pool) -> str:
+    """sha256 over a texture pool's texels and its offset, width and height
+    tables, as ``REAL_POOL_SHA256`` was taken."""
+    digest = hashlib.sha256()
+    for t in (pool.texels, pool.offset, pool.width, pool.height):
+        digest.update(np.ascontiguousarray(t.cpu().numpy()).tobytes())
+    return digest.hexdigest()
+
+
+def tool_run(tool: str, out_dir: Path) -> subprocess.Popen:
+    """``python -m vulkanraytracing_torch.tools.<tool>`` in its small mode on
+    the card, started from the checkout's root."""
+    extra, argv = TOOL_RUNS[tool]
+    return subprocess.Popen(
+        [sys.executable, "-m", f"vulkanraytracing_torch.tools.{tool}", *argv,
+         "--out-dir", str(out_dir / tool)],
+        cwd=ROOT, env={**os.environ, **extra}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def tool_gates(tool: str, report: dict) -> bool:
+    """The gates of a tool's report."""
+    if tool == "parity_artifact":
+        return report["all_pass"] and report["cases"]["cornell_parity"]["rmse"] == 0.0
+    if tool == "measure_t1024":
+        return report["measured_s"] > 0 and report["ratio"] > 0 and report["backend"] == "cuda"
+    if tool == "hybrid_artifact":
+        return report["rmse_pass_1e-3"]
+    want = json.loads(ANISO_REPORT.read_text())
+    return all(abs(report[k] - want[k]) <= ANISO_REL_TOL * want[k] for k in ANISO_KEYS)
+
+
 def bench_command(extra_env: dict, *args: str) -> tuple[list[str], dict]:
     """``python -m vulkanraytracing_torch bench`` from the checkout's root
     with ``extra_env`` on top of this process's environment: the argv and
@@ -956,6 +1019,11 @@ def main() -> int:
     print(f"[1 device] {card}; {torch.cuda.device_count()} visible; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(f"[1 device] nvidia-smi: {smi}", flush=True)
+    try:  # the texture pool does not use it (phase 9 checks the pool's digest)
+        pillow = f"Pillow {importlib.metadata.version('Pillow')} installed"
+    except importlib.metadata.PackageNotFoundError:
+        pillow = "no Pillow"
+    print(f"[1 device] {pillow}", flush=True)
 
     # each kernel: its module and its LAUNCHES keys (closest, any-hit)
     kernels = {"bvh8": (tw, ("closest", "any")), "bvh2": (tw2, ("closest2", "any2")),
@@ -1378,6 +1446,10 @@ def main() -> int:
           f"{real.textures.nbytes / 2**20:.2f} MiB; panorama {pano.shape[0]}x{pano.shape[1]}; "
           f"scene {t1 - t0:.2f} s, SAH build + BVH8 collapse + cutout subset "
           f"{t2 - t1:.2f} s", flush=True)
+    digest = pool_digest(real.textures)
+    print(f"[9 real] texture pool sha256 {digest} (the JAX package's pool: "
+          f"{REAL_POOL_SHA256})", flush=True)
+    check(digest == REAL_POOL_SHA256, "real scene: the texture pool is not the JAX package's")
     tables = {id(real.bvh): "main", id(alpha.opaque_bvh): "opaque view", id(alpha.bvh): "subset"}
 
     def name_of(bvh):
@@ -1887,7 +1959,37 @@ def main() -> int:
                   f"any {n['any']}", flush=True)
             print(f"[12 bench] {workload} report: {json.dumps(report)}", flush=True)
     print(f"[12 bench] {smi}", flush=True)
-    lap("12 bench", phase_start)
+    phase_start = lap("12 bench", phase_start)
+
+    # -- 13. the evidence tools' small modes, in subprocesses, all at once --
+    tools_launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tools_dir:
+        procs = {tool: tool_run(tool, Path(tools_dir)) for tool in TOOL_RUNS}
+        try:
+            for tool, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                for line in err.splitlines():
+                    print(f"[13 tools] {tool}: {line}", flush=True)
+                check(proc.returncode == 0, f"{tool}: exit code {proc.returncode}")
+                report = json.loads(out.splitlines()[-1])
+                check(report["device"] == smi, f"{tool}: device {report['device']!r}")
+                check(tool_gates(tool, report), f"{tool}: gates of {json.dumps(report)}")
+                found = re.search(r"bvh8 launches over [^:]+: closest (\d+), any (\d+)", err)
+                check(found is not None, f"{tool}: no launch line")
+                n = {"closest": int(found.group(1)), "any": int(found.group(2))}
+                # the aniso plane is textured and has no cutouts, so its shadow
+                # rays go through the closest-hit alpha loop: closest only
+                check(n["closest"] + n["any"] > 0, f"{tool}: BVH8 launches {n}")
+                tools_launches[tool] = n
+                print(f"[13 tools] {tool}: exit 0, gates pass, BVH8 launches closest "
+                      f"{n['closest']}, any {n['any']}; report {json.dumps(report)}",
+                      flush=True)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    lap("13 tools", phase_start)
     print(f"[time] chip_smoke: {time.perf_counter() - script_start:.1f} s in all", flush=True)
 
     lines = []
@@ -1931,6 +2033,9 @@ def main() -> int:
             lines[-1]["bench_launches"] = {w: n[kind] for w, n in bench_launches.items()}
             in_frame_txt += "; bench: " + ", ".join(
                 f"{w} {n[kind]} launches" for w, n in bench_launches.items())
+            lines[-1]["tools_launches"] = {t: n[kind] for t, n in tools_launches.items()}
+            in_frame_txt += "; tools: " + ", ".join(
+                f"{t} {n[kind]} launches" for t, n in tools_launches.items())
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
               f"in the frames of its path{in_frame_txt}", flush=True)

@@ -3,7 +3,16 @@ package's: the real workload's pool bit for bit, and ``sample_pool``
 within 1e-6 for the base level, a trilinear footprint and 4 anisotropic
 taps, under repeat, clamp and mirror wraps.  The JAX pool of an all-repeat
 pool samples through its footprint table, the others through four taps;
-the port always takes four taps, with the same values."""
+the port always takes four taps, with the same values.
+
+The mip chains: the port's ``_resize`` (numpy) equals Pillow's BILINEAR
+resize byte for byte, its pool built with Pillow blocked equals the JAX
+package's (built with Pillow), and no module of the port imports Pillow
+but the glTF loader's fallback for images that are not 8-bit PNGs."""
+
+import ast
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,3 +131,98 @@ def test_sky_panorama_and_its_sampling_match_jax():
     got = tpan.sample_environment(t_env(torch.from_numpy(pano)), torch.from_numpy(d)).numpy()
     assert (np.abs(got - want) <= 1e-6).mean() >= 0.999
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+# -- the mip chains without Pillow ------------------------------------------
+
+def _alpha(kind, shape, gen):
+    return {"opaque": np.full(shape, 255, np.uint8),
+            "zero": np.zeros(shape, np.uint8),
+            "partial": gen.integers(0, 256, shape, dtype=np.uint8),
+            "mixed": gen.choice(np.array([0, 7, 255], np.uint8), shape)}[kind]
+
+
+RESIZES = [  # (h, w) -> (h, w), alpha
+    ((64, 64), (32, 32), "opaque"),        # an even halving
+    ((63, 37), (31, 18), "partial"),       # an odd halving
+    ((5, 5), (2, 2), "mixed"),
+    ((1, 9), (1, 4), "partial"),           # 1-pixel edges
+    ((9, 1), (4, 1), "zero"),
+    ((2, 1), (1, 1), "mixed"),
+    ((1, 1), (3, 2), "partial"),
+    ((20, 30), (47, 71), "partial"),       # non-integer upscales
+    ((3, 2), (7, 5), "mixed"),
+    ((50, 70), (23, 31), "mixed"),         # non-integer downscales
+    ((17, 5), (40, 3), "zero"),
+    ((100, 7), (33, 7), "opaque"),         # one side only
+    ((2500, 40), (2048, 33), "partial"),   # the 2048 cap's scale (2048 / 2500)
+    ((4096, 24), (2048, 12), "mixed"),     # the cap's halving of a 4096 side
+]
+
+
+@pytest.mark.parametrize("src,dst,alpha", RESIZES,
+                         ids=[f"{s[0]}x{s[1]}-{d[0]}x{d[1]}-{a}" for s, d, a in RESIZES])
+def test_resize_equals_pillow_bilinear(src, dst, alpha):
+    """``_resize`` (numpy) equals Pillow's BILINEAR resize of an RGBA image
+    byte for byte, and so equals the JAX package's ``_resize`` where Pillow
+    is installed."""
+    from PIL import Image
+
+    gen = np.random.default_rng(src[0] * 1000 + dst[1])
+    img = gen.integers(0, 256, src + (4,), dtype=np.uint8)
+    img[..., 3] = _alpha(alpha, src, gen)
+    pil = Image.fromarray(img)
+    assert pil.mode == "RGBA"
+    want = np.asarray(pil.resize((dst[1], dst[0]), Image.BILINEAR))
+    got = ttex._resize(img, dst[1], dst[0])
+    assert got.dtype == np.uint8 and got.shape == dst + (4,)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, jtex._resize(img, dst[1], dst[0]))
+
+
+def test_pool_without_pillow_matches_jax(monkeypatch):
+    """With Pillow blocked from import, the port's pool of a few images
+    (odd sizes, a grey and an RGB image, one past ``max_size``) equals the
+    JAX package's pool, which resizes with Pillow, in every texel of every
+    mip."""
+    gen = np.random.default_rng(12)
+    images = [gen.integers(0, 256, (37, 23, 4), dtype=np.uint8),
+              gen.integers(0, 256, (16, 64, 3), dtype=np.uint8),
+              gen.uniform(0.0, 1.0, (9, 9)).astype(np.float32),
+              gen.integers(0, 256, (80, 50, 4), dtype=np.uint8)]
+    images[0][..., 3] = _alpha("mixed", (37, 23), gen)
+    with monkeypatch.context() as blocked:
+        blocked.setitem(sys.modules, "PIL", None)
+        blocked.setitem(sys.modules, "PIL.Image", None)
+        with pytest.raises(ImportError):
+            from PIL import Image  # noqa: F401
+        got = ttex.build_texture_pool(images, max_size=64, device="cpu")
+    want = jtex.build_texture_pool(images, max_size=64)
+    assert got.max_levels == 7 and int(got.width[3, 0]) == 40
+    for name in POOL_FIELDS:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+
+
+def test_no_pillow_in_the_port_but_the_gltf_image_fallback():
+    """No module of the port imports Pillow, except the glTF loader's
+    decoder of images other than 8-bit PNGs (a JPEG)."""
+    port = Path(__file__).resolve().parent.parent / "vulkanraytracing_torch"
+    found = []
+    for path in sorted(port.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        scopes = {}
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for inner in ast.walk(node):
+                    scopes.setdefault(id(inner), node.name)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            if any(n.split(".")[0] == "PIL" for n in names):
+                found.append((str(path.relative_to(port)), scopes.get(id(node))))
+    assert found == [("scene/gltf.py", "image_pixels")]

@@ -9,6 +9,12 @@ texel gathers and a lerp over all rays; trilinear adds a second level;
 axis.  Filtering happens in storage (sRGB) space and the shader applies
 ``to_linear`` afterwards, as the reference does.
 
+The mip levels (and a texture past ``max_size``) are made by ``_resize``:
+Pillow's bilinear resize of an RGBA image written out in numpy, equal to
+Pillow's byte for byte.  The JAX package resizes with Pillow where it is
+installed, so the port builds the JAX package's mip chains on a machine
+without Pillow too.
+
 The path tracer samples the base level (``footprint=None``).  The JAX
 package also keeps a 2x2 footprint table per texel (``TexturePool.quad``)
 so that a tap is one TPU row-gather: it holds the same texel values, and
@@ -58,17 +64,64 @@ class TexturePool(NamedTuple):
         return TexturePool(*[t.to(device) for t in self])
 
 
+_PRECISION_BITS = 22  # Pillow's fixed point for 8-bit resampling (32 - 8 - 2)
+
+
+def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for its
+    triangle filter: each output's first input and its weights (out, k) in
+    22-bit fixed point, computed in float64 in Pillow's operation order."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle's support of 1, widened when reducing
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    first = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - first
+    weights = np.zeros((out_size, ksize))
+    total = np.zeros(out_size)
+    for x in range(ksize):  # one tap at a time: Pillow's order of the sum
+        w = np.abs(((x + first) - center + 0.5) * (1.0 / filterscale))
+        w = np.where((w < 1.0) & (x < count), 1.0 - w, 0.0)
+        weights[:, x] = w
+        total += w
+    weights = np.where(total[:, None] != 0.0,
+                       weights / np.where(total == 0.0, 1.0, total)[:, None], weights)
+    return first, np.trunc(0.5 + weights * (1 << _PRECISION_BITS)).astype(np.int64)
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resampling along ``axis``: the weighted
+    sum in fixed point with half added, shifted down and clipped."""
+    in_size = img.shape[axis]
+    first, kk = _bilinear_coeffs(in_size, out_size)
+    src = np.moveaxis(img.astype(np.int64), axis, 0)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    lanes = (-1,) + (1,) * (src.ndim - 1)
+    for x in range(kk.shape[1]):
+        acc += src[np.minimum(first + x, in_size - 1)] * kk[:, x].reshape(lanes)
+    return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
+
+
 def _resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """RGBA u8 resize (PIL bilinear when available, numpy nearest else)."""
+    """RGBA u8 resize, byte for byte Pillow's ``Image.resize((w, h),
+    Image.BILINEAR)`` of an RGBA image, in numpy: colour premultiplied by
+    alpha (``MULDIV255``), a horizontal then a vertical pass where a side
+    changes, then divided by alpha again (alpha 0 and 255 pass through)."""
     if img.shape[0] == h and img.shape[1] == w:
         return img
-    try:
-        from PIL import Image
-    except ImportError:
-        yi = (np.arange(h) * img.shape[0] // h).clip(0, img.shape[0] - 1)
-        xi = (np.arange(w) * img.shape[1] // w).clip(0, img.shape[1] - 1)
-        return img[yi][:, xi]
-    return np.asarray(Image.fromarray(img, "RGBA").resize((w, h), Image.BILINEAR))
+    alpha = img[..., 3:].astype(np.uint32)
+    t = img[..., :3].astype(np.uint32) * alpha + 128
+    out = np.concatenate([((t >> 8) + t) >> 8, alpha], axis=-1).astype(np.uint8)
+    if out.shape[1] != w:
+        out = _resample_axis(out, w, 1)
+    if out.shape[0] != h:
+        out = _resample_axis(out, h, 0)
+    alpha = out[..., 3:].astype(np.uint32)
+    color = out[..., :3].astype(np.uint32)
+    straight = np.minimum(255 * color // np.maximum(alpha, 1), 255)
+    color = np.where((alpha == 0) | (alpha == 255), color, straight).astype(np.uint8)
+    return np.concatenate([color, out[..., 3:]], axis=-1)
 
 
 def _to_rgba8(img: np.ndarray) -> np.ndarray:
