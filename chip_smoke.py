@@ -7,7 +7,8 @@ Run from the repository root.  Phases, each printing its result:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit, and
    whether Pillow is installed (the texture pool does not use it);
-2. build: the four traversal kernels (BVH8, BVH2, subpacket and shared
+2. build: the four traversal kernels (BVH8, with its Moller-Trumbore and
+   its plane leaf test, BVH2, subpacket and shared
    cursor; nvcc, sm_90a) and the native BVH builders, from the sources in
    the checkout, all at once; ptxas's registers, stack, spills and shared
    memory of each kernel specialization, and the widths of every
@@ -139,7 +140,21 @@ Run from the repository root.  Phases, each printing its result:
    report names the card as ``nvidia-smi`` does, its gates pass (the parity
    cases at RMSE 1e-3 and the Cornell box at 0; the hybrid frame against
    the CPU's at 1e-3; the aniso RMSEs within 2% of the JAX package's
-   ``artifacts/aniso/report.json``) and it launched the BVH8 kernel.
+   ``artifacts/aniso/report.json``) and it launched the BVH8 kernel;
+14. the plane ("Woop") leaf test (``VRT_WOOP=1``): (a) the v1 tree's
+   plane table at the 1080p frame's bounce-0 shapes (phase 3's rays),
+   kernel = plain version in every field, twice, with its bound, the
+   Moller-Trumbore kernel timed in turns with it (MT, woop, woop, MT) and
+   the two kernels' hits compared; (b) one v1 frame recorded under the
+   switch and each launch replayed alone through the woop kernel (kernel =
+   plain version, bound) and through the MT kernel (timed); (c) v1 and
+   real 1080p frames from a fresh state, MT, woop, woop, MT, each woop
+   frame held to phase 5's or 9's frame 0 under the packet kernels' frame
+   gate (rays within 0.1%, at most 0.1% of the pixels more than 1/255
+   apart: the plane test rounds t, u and v otherwise, which may move a
+   hit at an edge or a cutout's texel), each MT frame bit-equal to it, the
+   launches counted from 0 (woop frames launch only the woop
+   specializations).
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -148,12 +163,14 @@ TB/s, and its operations over 67 TFLOP/s (fp32 off the tensor cores).  The
 operations are the slab and triangle tests that the per-ray plain version
 of the same tree makes for the same rays (its ``counts``; the three 2-wide
 kernels are held to the BVH2 one's), times the operations of one test
-counted from the code (``BOX_OPS``, ``TRI_OPS``).  No single PyTorch call
-traverses a BVH, so ``library_ms`` is null.  ``ms`` and ``bound_ms`` are
-taken on the frame's primary rays and bounce-0 shadow rays; every entry
-also carries ``frame_ms``, ``frame_bound_ms`` and ``frame_launches``: the
-kernel's time and bound summed over the replayed launches of one whole
-frame, whose later bounces are full of dead rays; ``frame_ms_unsorted``,
+counted from the code (``BOX_OPS``, ``TRI_OPS``; ``TRI_OPS_WOOP`` for the
+plane test, whose records are 64 bytes a triangle against 48).  No single
+PyTorch call traverses a BVH, so ``library_ms`` is null.  ``ms`` and
+``bound_ms`` are taken on the frame's primary rays and bounce-0 shadow
+rays; every entry also carries ``frame_ms``, ``frame_bound_ms`` and
+``frame_launches``: the kernel's time and bound summed over the replayed
+launches of one whole frame, whose later bounces are full of dead rays;
+``frame_ms_unsorted``,
 the same sum over an unsorted frame (BVH8 and the packet kernels); and
 the BVH8 entries ``real_launches``, ``real_frame_ms``,
 ``real_frame_bound_ms`` and ``real_frame_launches`` from phase 9,
@@ -161,7 +178,12 @@ the BVH8 entries ``real_launches``, ``real_frame_ms``,
 from phase 10, ``big_launches``, ``big_frame_ms`` and
 ``big_frame_bound_ms`` from phase 11's 1M-triangle frames,
 ``bench_launches`` (v1 and real) from phase 12's measured frames, and
-``tools_launches`` (each tool) from phase 13.
+``tools_launches`` (each tool) from phase 13.  The plane test's entries
+(``bvh8woop_closest``, ``bvh8woop_any``) come from phase 14: launches
+over its woop frames, ``frame_*`` from its replay, and the A/B against
+Moller-Trumbore: ``mt_ms`` and ``ms_turns`` (the MT and woop kernels in
+turns at bounce 0), ``mt_frame_ms`` (the MT kernel over the same replayed
+frame) and ``frames_ms`` (whole frames, v1 and real, MT and woop).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -203,6 +225,9 @@ import torch
 # source's own "// Replaces: file:line" line
 SOURCES = {
     "bvh8": "vulkanraytracing_torch/csrc/bvh8_traverse.cu",
+    # the BVH8 kernel with the plane leaf test: the same source's
+    # vrt_bvh8_woop_* entries (_kernel(woop=True) of the same TPU kernel)
+    "bvh8woop": "vulkanraytracing_torch/csrc/bvh8_traverse.cu",
     "bvh2": "vulkanraytracing_torch/csrc/bvh2_traverse.cu",
     "subpacket": "vulkanraytracing_torch/csrc/subpacket_traverse.cu",
     "shared": "vulkanraytracing_torch/csrc/shared_traverse.cu",
@@ -225,6 +250,11 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 BOX_OPS = 25
 TRI_OPS = 56
+# the plane test (ops/intersect.py::plane_test, csrc/traverse_common.cuh::
+# test_triangle_plane): 16 products (n.d, n.o, t = num * inv, t d, up.p,
+# vp.p), 15 sums and negations (2 + 3 + 1, o + t d, the two planes' 3
+# each), the reciprocal with its guard (4) and the window (8), as above
+TRI_OPS_WOOP = 43
 # bytes a ray reads (o, d, t_min, t_max) and writes (t, u, v, tri and the
 # back face; the any-hit verdict)
 RAY_IN_BYTES = 32
@@ -286,14 +316,19 @@ def replaces(source: str) -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel specialization by its name and template flags as in the
-    source (any-hit, culling), from its mangled name."""
+    """A kernel specialization by its name and template arguments as in the
+    source (the walk of a traverse_kernel, any-hit, culling), from its
+    mangled name."""
     found = re.search(r"(?:traverse|shared|subpacket)_kernel", mangled)
     if not found:
         return mangled
     kernel = found.group(0)
-    flags = re.findall(r"Lb([01])E", mangled[mangled.index(kernel):])
-    return kernel + (f"<{','.join(flags)}>" if flags else "")
+    rest = mangled[found.end():]
+    args = re.findall(r"Lb([01])E", rest)
+    walk = re.match(r"INS_(\d+)", rest)
+    if walk:  # the walk struct, a length-prefixed name: NS_4Bvh8E
+        args.insert(0, rest[walk.end():walk.end() + int(walk.group(1))])
+    return kernel + (f"<{','.join(args)}>" if args else "")
 
 
 def ptxas_report(lib) -> list[str]:
@@ -356,14 +391,16 @@ def sass_loads(lib) -> list[str]:
     return rows
 
 
-def bound(kind: str, n_rays: int, table, counts: dict) -> tuple[float, str]:
+def bound(kind: str, n_rays: int, table, counts: dict,
+          tri_ops: int = TRI_OPS) -> tuple[float, str]:
     """The least time the card could take for a traversal call: (ms, what
     bounds it), from the bytes it must move (the rays, the results and
     ``table``, the tensors of the table that the kernel reads) and the
-    tests the per-ray plain version counted for the same rays."""
+    tests the per-ray plain version counted for the same rays (``tri_ops``
+    a triangle test: ``TRI_OPS_WOOP`` for the plane test)."""
     n_bytes = (n_rays * (RAY_IN_BYTES + RAY_OUT_BYTES[kind])
                + sum(t.numel() * t.element_size() for t in table))
-    ops = counts["box_tests"] * BOX_OPS + counts["tri_tests"] * TRI_OPS
+    ops = counts["box_tests"] * BOX_OPS + counts["tri_tests"] * tri_ops
     byte_ms, op_ms = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
@@ -454,16 +491,17 @@ def per_ray_work(tw, table, closest_rays, shadow_rays) -> dict:
     return work
 
 
-def frame_gate(name, img, rays, ref_img, ref_rays) -> None:
-    """A frame through a packet backend against the ``BVH_KERNEL`` frame
-    from the same state: finite and lit, ray counts within
-    ``FRAME_RAY_TOL``, at most ``FRAME_PIXEL_SHARE`` of the pixels more
-    than 1/255 apart."""
+def frame_gate(name, img, rays, ref_img, ref_rays, label="[8 packet]",
+               against="BVH_KERNEL frame 0") -> None:
+    """A frame through a packet backend (or the plane leaf test) against
+    the ``BVH_KERNEL`` frame from the same state: finite and lit, ray
+    counts within ``FRAME_RAY_TOL``, at most ``FRAME_PIXEL_SHARE`` of the
+    pixels more than 1/255 apart."""
     check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.0,
           f"{name} image finite and not black")
     far = ((img - ref_img).abs() > 1.0 / 255.0 + 1e-6).any(dim=-1)
     share = float(far.float().mean())
-    print(f"[8 packet] {name} frame 0 against BVH_KERNEL frame 0: rays {rays} vs "
+    print(f"{label} {name} frame 0 against {against}: rays {rays} vs "
           f"{ref_rays} ({(rays - ref_rays) / ref_rays:+.2e}); {int(far.sum())} pixels "
           f"({share:.2e}) more than 1/255 apart, "
           f"{int((img != ref_img).any(dim=-1).sum())} differ at all", flush=True)
@@ -536,6 +574,23 @@ class TableCounts:
         trace.traverse_closest, trace.traverse_any = self._saved
 
 
+class Woop:
+    """The plane leaf test for every BVH8 call inside (as ``VRT_WOOP=1``
+    at import: ``ops.traverse_wide8.WOOP_DEFAULT``), restored after."""
+
+    def __enter__(self):
+        from vulkanraytracing_torch.ops import traverse_wide8
+
+        self._saved = traverse_wide8.WOOP_DEFAULT
+        traverse_wide8.WOOP_DEFAULT = True
+        return self
+
+    def __exit__(self, *exc):
+        from vulkanraytracing_torch.ops import traverse_wide8
+
+        traverse_wide8.WOOP_DEFAULT = self._saved
+
+
 class NoSort:
     """``VRT_DEBUG_NO_SORT=1`` for the frames inside, restored after."""
 
@@ -556,7 +611,7 @@ class NoSort:
 
 
 def replay(modules, counter, get_table, table_tensors, calls, label, check_plain=True,
-           count=True, name_of=None) -> dict:
+           count=True, name_of=None, tri_ops=TRI_OPS) -> dict:
     """Each recorded launch of a frame (``record_frame``) alone, through
     each traversal module of ``modules`` ({name: module}) over
     ``get_table(bvh)``: the kernel's ms (CUDA events, mean of 5) and the
@@ -584,7 +639,7 @@ def replay(modules, counter, get_table, table_tensors, calls, label, check_plain
                 counted = counter.closest_plain(table, *rays, cull, counts=counts)
             else:
                 counted = (counter.any_plain(table, *rays, counts=counts),)
-            bound_ms, by = bound(kind, n, table_tensors(table), counts)
+            bound_ms, by = bound(kind, n, table_tensors(table), counts, tri_ops)
             print(f"{label} launch {i}{where} {kind}: {n} rays, {live} live; bound "
                   f"{bound_ms:.4f} ms ({by}); {counts['box_tests']} box and "
                   f"{counts['tri_tests']} triangle tests", flush=True)
@@ -1989,7 +2044,104 @@ def main() -> int:
                 if proc.poll() is None:
                     proc.kill()
                     proc.communicate()
-    lap("13 tools", phase_start)
+    phase_start = lap("13 tools", phase_start)
+
+    # -- 14. the plane (woop) leaf test -------------------------------------
+    # (a) at the bounce-0 shapes, over the v1 tree's plane records: kernel =
+    # plain version, twice; the bound; the Moller-Trumbore kernel timed
+    # beside it in turns (MT, woop, woop, MT), and the two kernels' hits
+    t0 = time.perf_counter()
+    table8w = tw.get_table8(v1.bvh, woop=True)
+    print(f"[14 woop] v1 plane records: {tuple(table8w.tri.shape)} in "
+          f"{time.perf_counter() - t0:.2f} s ({table8w.tri.shape[1] * 4} B a triangle, "
+          f"{tuple(table8.tri.shape)} for Moller-Trumbore)", flush=True)
+    result.update({
+        "bvh8woop_closest": compare(tw, table8w, *v1_closest, "[14 woop] frame primary",
+                                    culls=(True,), any_hit=False, reps=5)["closest"],
+        "bvh8woop_any": compare(tw, table8w, *v1_shadow, "[14 woop] frame shadow", culls=(),
+                                reps=5)["any"]})
+    work = per_ray_work(tw, table8w, v1_closest, v1_shadow)
+    for kind, rays in (("closest", v1_closest), ("any", v1_shadow)):
+        bounds[f"bvh8woop_{kind}"] = bound(kind, rays[0].shape[0], table8w, work[kind],
+                                           TRI_OPS_WOOP)
+    woop_ab = {}
+    for kind, rays in (("closest", v1_closest), ("any", v1_shadow)):
+        launch = tw.closest_cuda if kind == "closest" else tw.any_cuda
+        turns = [cuda_ms(lambda t=t: launch(t, *rays), 5)
+                 for t in (table8, table8w, table8w, table8)]
+        woop_ab[kind] = {"mt_ms": [turns[0], turns[3]], "woop_ms": [turns[1], turns[2]]}
+        print(f"[14 woop] bounce 0 {kind}, MT / woop / woop / MT: "
+              + " / ".join(f"{x:.3f}" for x in turns) + " ms; woop bound "
+              f"{bounds[f'bvh8woop_{kind}'][0]:.4f} ms ({bounds[f'bvh8woop_{kind}'][1]}), MT "
+              f"{bounds[f'bvh8_{kind}'][0]:.4f} ms; tests: woop {work[kind]['tri_tests']} "
+              f"triangles, MT {work8[kind]['tri_tests']}", flush=True)
+    mt_hit, woop_hit = tw.closest_cuda(table8, *v1_closest), tw.closest_cuda(table8w, *v1_closest)
+    both = mt_hit.is_hit & woop_hit.is_hit
+    same = both & (mt_hit.tri == woop_hit.tri)
+    rel = ((woop_hit.t - mt_hit.t).abs() / mt_hit.t.abs())[same]
+    print(f"[14 woop] bounce-0 primary hits, woop against MT: "
+          f"{int((mt_hit.is_hit != woop_hit.is_hit).sum())} of {both.numel()} rays differ in "
+          f"hit or miss, {int((both & ~same).sum())} in the triangle; t on the same "
+          f"triangle {float(rel.max()) if bool(same.any()) else 0.0:.3g} relative at most; occluded "
+          f"shadow rays {int(tw.any_cuda(table8, *v1_shadow).sum())} / "
+          f"{int(tw.any_cuda(table8w, *v1_shadow).sum())}", flush=True)
+    del mt_hit, woop_hit, both, same, rel
+    # (b) one v1 frame recorded under the switch, each launch replayed alone
+    # through the woop kernel (kernel = plain version, twice, and the bound)
+    # and then through the MT kernel over the MT tables (timed only)
+    with Woop():
+        calls = record_frame(lambda: render_frame(v1, main_cfg, main_camera,
+                                                  create_render_state(main_cfg, device)))
+    in_frame["bvh8woop"] = replay({"bvh8woop": tw}, tw, lambda b: tw.get_table8(b, woop=True),
+                                  tuple, calls, "[14 replay]",
+                                  tri_ops=TRI_OPS_WOOP)["bvh8woop"]
+    mt_in_frame = replay({"bvh8": tw}, tw, tw.get_table8, tuple, calls, "[14 replay MT]",
+                         check_plain=False, count=False)["bvh8"]
+    print("[14 woop] v1 frame's launches, woop / MT: " + "; ".join(
+        f"{kind} {in_frame['bvh8woop'][kind][0]:.3f} / {mt_in_frame[kind][0]:.3f} ms"
+        for kind in ("closest", "any")), flush=True)
+    del calls
+    # (c) whole 1080p frames from a fresh state, MT / woop / woop / MT, for v1
+    # and the real scene (its plane tables packed first: the opaque view's
+    # and the cutout subset's); each woop frame held to phase 5's or 9's
+    # frame 0 under the frame gate, each MT frame bit-equal to it; the
+    # launches counted from 0, woop frames launching only the woop kernels
+    for bvh in (real.alpha.opaque_bvh, real.alpha.bvh):
+        tw.get_table8(bvh, woop=True)
+    tw.LAUNCHES.clear()
+    woop_launches = collections.Counter()
+    woop_frames = {}
+    for label, scene, (ref_img, ref_rays) in (("v1", v1, first_frame),
+                                              ("real", real, real_first)):
+        ms_turns = []
+        for woop in (False, True, True, False):
+            before = dict(tw.LAUNCHES)
+            with Woop() if woop else contextlib.nullcontext():
+                (st, st_stats), ms = timed_frame(lambda: render_frame(
+                    scene, main_cfg, main_camera, create_render_state(main_cfg, device)))
+            ms_turns.append(ms)
+            n = {k: c - before.get(k, 0) for k, c in tw.LAUNCHES.items()}
+            keys = {"woop_closest", "woop_any"} if woop else {"closest", "any"}
+            check(all(n.get(k, 0) > 0 for k in keys)
+                  and not any(c for k, c in n.items() if k not in keys),
+                  f"[14 woop] {label} frame (woop {woop}): launches {n}")
+            rays = int(st_stats.rays)
+            print(f"[14 woop] {label} frame, {'woop' if woop else 'MT'}: {ms:.1f} ms, {rays} "
+                  f"rays, {rays / ms / 1e3:.2f} Mrays/s; launches "
+                  + ", ".join(f"{k} {c}" for k, c in sorted(n.items()) if c), flush=True)
+            if woop:
+                woop_launches.update(n)
+                frame_gate(f"{label} VRT_WOOP=1", st.accumulation, rays, ref_img, ref_rays,
+                           label="[14 woop]",
+                           against=f"phase {5 if label == 'v1' else 9}'s MT frame 0")
+            else:
+                frames_alike(f"[14 woop] {label} MT frame 0 again", st.accumulation, rays,
+                             ref_img, ref_rays, exact=True)
+        woop_frames[label] = {"mt_ms": [ms_turns[0], ms_turns[3]],
+                              "woop_ms": [ms_turns[1], ms_turns[2]]}
+    launches.update({f"bvh8woop_{kind}": woop_launches[f"woop_{kind}"]
+                     for kind in ("closest", "any")})
+    phase_start = lap("14 woop", phase_start)
     print(f"[time] chip_smoke: {time.perf_counter() - script_start:.1f} s in all", flush=True)
 
     lines = []
@@ -2011,6 +2163,14 @@ def main() -> int:
         if name in in_frame_unsorted:
             lines[-1]["frame_ms_unsorted"] = in_frame_unsorted[name][kind][0]
             in_frame_txt += f", {in_frame_unsorted[name][kind][0]:.3f} ms unsorted"
+        if name == "bvh8woop":
+            lines[-1].update(mt_ms=woop_ab[kind]["mt_ms"], ms_turns=woop_ab[kind]["woop_ms"],
+                             mt_frame_ms=mt_in_frame[kind][0], frames_ms=woop_frames)
+            in_frame_txt += (f"; MT kernel {woop_ab[kind]['mt_ms'][0]:.3f} / "
+                             f"{woop_ab[kind]['mt_ms'][1]:.3f} ms in turns with woop "
+                             f"{woop_ab[kind]['woop_ms'][0]:.3f} / "
+                             f"{woop_ab[kind]['woop_ms'][1]:.3f} ms, "
+                             f"{mt_in_frame[kind][0]:.3f} ms over the same frame's launches")
         if name == "bvh8":
             r_ms, r_bound_ms, r_launches = real_in_frame[kind]
             lines[-1].update(real_launches=real_launches[key], real_frame_ms=r_ms,

@@ -1,5 +1,5 @@
-"""The traversal kernels on the card against their plain versions (BVH8,
-BVH2, subpacket and shared cursor), the per-ray kernels' persistent warps
+"""The traversal kernels on the card against their plain versions (BVH8
+with either leaf test, BVH2, subpacket and shared cursor), the per-ray kernels' persistent warps
 and the packet kernels' persistent warps and blocks at odd ray counts, run
 twice, with dead rays and with none, the plain packet backend on the card
 against the CPU, and the slice through the BVH8 kernel against brute force.
@@ -71,6 +71,28 @@ def test_any_kernel_matches_plain_and_counts(cuda):
     kernel = tw.any_cuda(table, *rays)
     assert tw.LAUNCHES["any"] == before + 1
     assert torch.equal(kernel, tw.any_plain(table, *rays))
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_woop_kernel_matches_plain_and_counts(cuda, cull, monkeypatch):
+    """The plane leaf test (``VRT_WOOP=1``): its kernels over the plane
+    table, bit-equal to the plain version and counted under their own keys;
+    the switch sends ``intersect_closest`` / ``intersect_any`` to them."""
+    scene = build_scene_bvh(triangle_soup_scene(20000, seed=1, device=cuda))
+    table, rays = tw.get_table8(scene.bvh, woop=True), _rays(cuda)
+    before = dict(tw.LAUNCHES)
+    kernel = tw.closest_cuda(table, *rays, cull_backface=cull)
+    blocked = tw.any_cuda(table, *rays)
+    plain = tw.closest_plain(table, *rays, cull_backface=cull)
+    assert plain.is_hit.sum() > 100
+    for name, a, b in zip(plain._fields, kernel, plain):
+        assert torch.equal(a, b), name
+    assert torch.equal(blocked, tw.any_plain(table, *rays))
+    monkeypatch.setattr(tw, "WOOP_DEFAULT", True)
+    tw.intersect_closest(scene.bvh, *rays, cull_backface=cull)
+    tw.intersect_any(scene.bvh, *rays)
+    assert {k: n - before.get(k, 0) for k, n in tw.LAUNCHES.items()
+            if n != before.get(k, 0)} == {"woop_closest": 2, "woop_any": 2}
 
 
 def _case2(device):

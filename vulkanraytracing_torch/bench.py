@@ -290,7 +290,7 @@ def run(args: argparse.Namespace) -> int:
     # window closes on float(stats.rays), which waits for the frame's work
     evidence.stage = "measurement"
     per_frame = evidence.per_frame
-    before = dict(traverse_wide8.LAUNCHES)
+    before = traverse_wide8.launches_by_kind()
     for i in range(frames):
         watchdog = evidence.arm_watchdog(float(env.get("VRT_BENCH_FRAME_S", 300)),
                                          f"frame {i}")
@@ -304,9 +304,10 @@ def run(args: argparse.Namespace) -> int:
         per_frame.append(mrays)
         print(f"frame {i}: {dt * 1e3:.1f} ms, {int(rays)} rays, {mrays:.3f} Mrays/s/chip",
               file=sys.stderr, flush=True)
-    launched = {k: traverse_wide8.LAUNCHES[k] - before.get(k, 0) for k in ("closest", "any")}
+    launched = {k: n - before[k] for k, n in traverse_wide8.launches_by_kind().items()}
     print(f"bvh8 launches over the {frames} measured frames: closest {launched['closest']}, "
-          f"any {launched['any']}", file=sys.stderr, flush=True)
+          f"any {launched['any']}" + (" (plane leaf test)" if traverse_wide8.WOOP_DEFAULT
+                                      else ""), file=sys.stderr, flush=True)
 
     evidence.stage = "report"
     best = max(per_frame)

@@ -1,5 +1,6 @@
 // BVH8 ray traversal: the node step and the leaf step of one ray's walk,
-// closest-hit or any-hit.
+// closest-hit or any-hit, with the Moller-Trumbore leaf test (Bvh8) or the
+// plane leaf test (Bvh8Woop, at the end).
 //
 // Replaces the Pallas kernel vulkanraytracing_tpu/ops/traverse_wide8.py
 // (_kernel, driven by _traverse_wide8_packed) on an NVIDIA Hopper card.
@@ -42,8 +43,9 @@ struct Table8 {
   // child ids at [48, 56) as int32 bits: node id (> 0), leaf code (< 0),
   // 0 = empty; 8 pads.
   const float* node;
-  // (T8, 12): v0 xyz, flags; e1 xyz, BVH-order triangle id; e2 xyz, pad
-  // (flags and id as int32 bits).
+  // Bvh8: (T8, 12): v0 xyz, flags; e1 xyz, BVH-order triangle id; e2 xyz,
+  // pad.  Bvh8Woop: (T8, 16): n xyz, dn; up xyz, uc; vp xyz, vc; flags, id,
+  // 2 pads.  Flags and id as int32 bits.
   const float* tri;
 };
 
@@ -148,6 +150,45 @@ struct Bvh8 {
       if (test_triangle<kAnyHit, kCull>(a.f[0], a.f[1], a.f[2], b.f[0], b.f[1],
                                         b.f[2], c.f[0], c.f[1], c.f[2], flags,
                                         as_int(b.f[3]), w.r, w.best, w.h)) {
+        w.cur = kDone;
+        return;
+      }
+    }
+    w.cur = stack.pop();
+  }
+};
+
+// The BVH8 walk with the plane ("Woop") leaf test, the second leaf test of
+// the Pallas kernel: replaces _kernel(woop=True)
+// (vulkanraytracing_tpu/ops/traverse_wide8.py:278, its `if woop:` branch at
+// :530-552), over a Table8 whose tri holds plane records
+// (ops/traverse_wide8.py::build_table8(woop=True)).  The node step is
+// Bvh8's; only the leaf step differs.
+//
+// What bounds it on the card: at bounce 0 the instructions a walk issues,
+// as for Bvh8 (the kernel reaches 12-18% of its operation bound there, so
+// the leaf arithmetic is a small share of its time); on the incoherent rays
+// of later bounces the records the walks ask the L2 for.  What the record
+// trades: the plane test takes 43 operations against Moller-Trumbore's 56
+// (no cross products in the leaf: they are precomputed into the three
+// planes), but all 12 geometric floats of a plane record are used, so the
+// flags and id need a fourth 16-byte load: 64 bytes a triangle against 48.
+// The four loads all start before the flags are read, as Bvh8's three do.
+struct Bvh8Woop : Bvh8 {
+  template <bool kAnyHit, bool kCull, class S>
+  static VRT_HD void leaf_step(const Table8& tab, Walk& w, S& stack) {
+    const int packed = ~w.cur;
+    const int start = packed >> 4, count = packed & 15;
+    for (int s = start; s < start + count; ++s) {
+      const float* rec = tab.tri + 16 * static_cast<long long>(s);
+      const Vec4 a = load16(rec), b = load16(rec + 4), c = load16(rec + 8),
+                 m = load16(rec + 12);
+      const int flags = as_int(m.f[0]);
+      if (!(flags & 6)) continue;
+      if (test_triangle_plane<kAnyHit, kCull>(
+              a.f[0], a.f[1], a.f[2], a.f[3], b.f[0], b.f[1], b.f[2], b.f[3],
+              c.f[0], c.f[1], c.f[2], c.f[3], flags, as_int(m.f[1]), w.r,
+              w.best, w.h)) {
         w.cur = kDone;
         return;
       }

@@ -1,5 +1,6 @@
 // What the BVH8 and BVH2 traversals share: the ray and hit records, the
-// slab test of one child box, the Moller-Trumbore test of one triangle,
+// slab test of one child box, the Moller-Trumbore test of one triangle
+// (and the BVH8 walk's plane test over precomputed plane records),
 // the 16-byte loads of the packed tables, the per-ray stack and walk state,
 // and the persistent-warp kernel that drives either walk on the card.
 //
@@ -150,6 +151,46 @@ VRT_HD bool test_triangle(float v0x, float v0y, float v0z, float e1x,
     h.u = mu;
     h.v = mv;
     h.backface = det < 0.0f;
+  }
+  return false;
+}
+
+// The plane ("Woop") test of one candidate triangle over its plane record
+// (ops/traverse_wide8.py::woop_records): the geometric plane (n, dn) and the
+// barycentric planes (up, uc), (vp, vc).  The same contract as
+// test_triangle, in the operation order of ops/intersect.py::plane_test:
+// den = n.d is -det of Moller-Trumbore, so det > eps is den < -eps and a
+// back face is den > 0.
+template <bool kAnyHit, bool kCull>
+VRT_HD bool test_triangle_plane(float nx, float ny, float nz, float dn,
+                                float upx, float upy, float upz, float uc,
+                                float vpx, float vpy, float vpz, float vc,
+                                int flags, int tid, const Ray& r, float& best,
+                                HitRecord& h) {
+  const float den = nx * r.dx + ny * r.dy + nz * r.dz;
+  const float num = -(nx * r.ox + ny * r.oy + nz * r.oz + dn);
+  const float inv = 1.0f / (fabsf(den) < kDetEps ? 1.0f : den);
+  const float mt = num * inv;
+  const float px = r.ox + mt * r.dx;
+  const float py = r.oy + mt * r.dy;
+  const float pz = r.oz + mt * r.dz;
+  const float mu = upx * px + upy * py + upz * pz + uc;
+  const float mv = vpx * px + vpy * py + vpz * pz + vc;
+  bool valid = fabsf(den) > kDetEps && mu >= 0.0f && mv >= 0.0f &&
+               mu + mv <= 1.0f && mt >= r.tmin && mt <= best;
+  if (kCull) valid = valid && (den < -kDetEps || (flags & 1));
+  if (kAnyHit) {
+    h.hit = h.hit || valid;
+    return valid;
+  }
+  valid = valid && (mt < best || tid < (h.hit ? h.tri : kIntMax));
+  if (valid) {
+    best = mt;
+    h.hit = true;
+    h.tri = tid;
+    h.u = mu;
+    h.v = mv;
+    h.backface = den > 0.0f;
   }
   return false;
 }

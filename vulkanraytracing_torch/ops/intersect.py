@@ -1,4 +1,5 @@
-"""Ray-triangle intersection (Moller-Trumbore) and the brute-force oracle.
+"""Ray-triangle intersection (Moller-Trumbore, and the plane test of the
+BVH8 traversal's plane records) and the brute-force oracle.
 
 Counterpart of ``vulkanraytracing_tpu/ops/intersect.py``.  Two query
 kinds: ``intersect_closest_brute`` (material rays; back faces culled
@@ -69,6 +70,33 @@ def moller_trumbore(o: Tensor, d: Tensor, v0: Tensor, e1: Tensor, e2: Tensor,
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     return t, u, v, det
+
+
+def plane_test(o: Tensor, d: Tensor, n: Tensor, dn: Tensor, up: Tensor, uc: Tensor,
+               vp: Tensor, vc: Tensor, det_eps: float = DET_EPS):
+    """The plane ("Woop") leaf test over plane records
+    (``ops.traverse_wide8.woop_records``): the geometric plane n.x + dn
+    and the barycentric planes up.x + uc, vp.x + vc, with (..., 3) normals
+    and (...,) offsets.  In the operation order of the JAX package's woop
+    branch (``vulkanraytracing_tpu/ops/traverse_wide8.py:530-552``) and of
+    ``csrc/bvh8_traverse.cuh::test_triangle_plane``: den = n.d,
+    t = -(n.o + dn) / den, p = o + t d, u = up.p + uc, v = vp.p + vc.
+    Returns (t, u, v, det) with det = -den, Moller-Trumbore's det for the
+    same triangle, so that the caller's verdicts are MT's: |det| > eps,
+    front face det > eps, back face det < 0."""
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    den = nx * dx + ny * dy + nz * dz
+    num = -(nx * ox + ny * oy + nz * oz + dn)
+    inv = 1.0 / torch.where(den.abs() < det_eps, 1.0, den)
+    t = num * inv
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    u = up[..., 0] * px + up[..., 1] * py + up[..., 2] * pz + uc
+    v = vp[..., 0] * px + vp[..., 1] * py + vp[..., 2] * pz + vc
+    return t, u, v, -den
 
 
 def intersect_closest_brute(

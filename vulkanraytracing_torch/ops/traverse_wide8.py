@@ -19,6 +19,14 @@ which ray.  ``intersect_closest`` /
 ``intersect_any`` take the plain version only for CPU tensors; for CUDA
 tensors they launch the kernel, and a failed build or launch raises.
 ``LAUNCHES`` counts kernel launches per specialization.
+
+Two leaf tests, as in the JAX package: Moller-Trumbore over (v0, e1, e2)
+records, the default, and the plane ("Woop") test over precomputed
+plane records (``woop_records``), taken by every call when ``VRT_WOOP=1``
+is set at import (``WOOP_DEFAULT``).  A table holds one or the other
+(``Table8.woop``), and each has its own kernel specializations, CPU twin
+entries, plain leaf test (``ops.intersect.plane_test``) and ``LAUNCHES``
+keys ("woop_closest", "woop_any").
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import os
 from typing import NamedTuple
 
 import torch
@@ -34,7 +43,9 @@ from torch import Tensor
 from vulkanraytracing_torch import native
 from vulkanraytracing_torch.accel.bvh8 import _worst_case_stack
 from vulkanraytracing_torch.accel.lbvh import decode_leaf
-from vulkanraytracing_torch.ops.intersect import BIG_T, DET_EPS, Hit, moller_trumbore
+from vulkanraytracing_torch.ops.intersect import (
+    BIG_T, DET_EPS, Hit, moller_trumbore, plane_test,
+)
 from vulkanraytracing_torch.scene.types import BVH
 
 # Per-ray stack entries.  Every traversal kernel (BVH8 here; BVH2 and the
@@ -47,8 +58,13 @@ STACK_DEPTH = 96
 TINY = 1e-30
 _INT32_MAX = 2**31 - 1
 
-# Kernel launches per specialization ("closest", "any"), counted by the
-# CUDA wrappers only.
+# The leaf test of every BVH8 call: the plane test of ``woop_records``
+# where set, else Moller-Trumbore (the JAX package's switch, read once at
+# import as there).
+WOOP_DEFAULT = os.environ.get("VRT_WOOP", "0") == "1"
+
+# Kernel launches per specialization ("closest", "any"; "woop_closest",
+# "woop_any" over plane records), counted by the CUDA wrappers only.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -63,12 +79,19 @@ class Table8(NamedTuple):
     # [24, 48), each half as lo.x[4] lo.y[4] lo.z[4] hi.x[4] hi.y[4] hi.z[4];
     # the 8 child ids at [48, 56) as int32 bits; 8 pads
     node: Tensor
-    # (T8, 12) f32: v0 xyz, flags; e1 xyz, BVH-order triangle id (-1 =
-    # padding); e2 xyz, pad (flags and id as int32 bits)
+    # Moller-Trumbore records, (T8, 12) f32: v0 xyz, flags; e1 xyz,
+    # BVH-order triangle id (-1 = padding); e2 xyz, pad.  Or plane records
+    # (``woop_records``), (T8, 16) f32: n xyz, dn; up xyz, uc; vp xyz, vc;
+    # flags, id, 2 pads.  Flags and id as int32 bits.
     tri: Tensor
 
     def to(self, device) -> "Table8":
         return Table8(*[t.to(device) for t in self])
+
+    @property
+    def woop(self) -> bool:
+        """Whether ``tri`` holds plane records (the plane leaf test)."""
+        return self.tri.shape[1] == 16
 
     @property
     def boxes(self) -> Tensor:
@@ -84,11 +107,46 @@ class Table8(NamedTuple):
     @property
     def tri_meta(self) -> Tensor:
         """(T8, 2) i32: flags, BVH-order triangle id (-1 = padding)."""
-        return self.tri.view(torch.int32)[:, [3, 7]]
+        return self.tri.view(torch.int32)[:, [12, 13] if self.woop else [3, 7]]
 
 
-def build_table8(bvh: BVH) -> Table8:
-    """Pack the BVH8 collapse into the kernel's table.  Leaf codes address
+def woop_records(tris: Tensor) -> Tensor:
+    """Plane records (T, 12) f32 of (T, >= 9) triangles (v0, e1, e2): the
+    geometric plane (n, dn) and the barycentric planes (up, uc), (vp, vc),
+    so that the leaf test is t = -(n.o + dn) / (n.d), p = o + t d,
+    u = up.p + uc, v = vp.p + vc (``ops.intersect.plane_test``).
+
+    The JAX package's ``_woop_records`` formula, every product rounded and
+    every sum taken left to right: n = e1 x e2, up = (e2 x n) / |n|^2,
+    vp = (n x e1) / |n|^2, dn = -n.v0, uc = -up.v0, vc = -vp.v0.  A
+    degenerate triangle (|n|^2 = 0) gets zero planes, so n.d = 0 rejects
+    every ray.  XLA contracts some of these products into fused
+    multiply-adds, so the records agree with the JAX package's to rounding,
+    not bit for bit."""
+    t = tris.float()
+    v0x, v0y, v0z = t[:, 0], t[:, 1], t[:, 2]
+    e1x, e1y, e1z = t[:, 3], t[:, 4], t[:, 5]
+    e2x, e2y, e2z = t[:, 6], t[:, 7], t[:, 8]
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    nn = nx * nx + ny * ny + nz * nz
+    inv_nn = torch.where(nn > 0.0, 1.0 / nn, 0.0)
+    upx = (e2y * nz - e2z * ny) * inv_nn
+    upy = (e2z * nx - e2x * nz) * inv_nn
+    upz = (e2x * ny - e2y * nx) * inv_nn
+    vpx = (ny * e1z - nz * e1y) * inv_nn
+    vpy = (nz * e1x - nx * e1z) * inv_nn
+    vpz = (nx * e1y - ny * e1x) * inv_nn
+    dn = -(nx * v0x + ny * v0y + nz * v0z)
+    uc = -(upx * v0x + upy * v0y + upz * v0z)
+    vc = -(vpx * v0x + vpy * v0y + vpz * v0z)
+    return torch.stack([nx, ny, nz, dn, upx, upy, upz, uc, vpx, vpy, vpz, vc], dim=1)
+
+
+def build_table8(bvh: BVH, woop: bool = False) -> Table8:
+    """Pack the BVH8 collapse into the kernel's table, with Moller-Trumbore
+    triangle records, or plane records with ``woop``.  Leaf codes address
     the row-aligned slots of ``tri_perm8``; padding slots get flags 0, so
     they are never candidates.  Raises when the tree's worst-case stack
     need exceeds ``STACK_DEPTH``: the kernel has no overflow path."""
@@ -108,23 +166,34 @@ def build_table8(bvh: BVH) -> Table8:
     perm = bvh.tri_perm8.long()
     valid = perm >= 0
     idx = perm.clamp_min(0)
-    src = bvh.tris[idx].float().contiguous().view(torch.int32)
-    tri = torch.zeros((perm.shape[0], 12), dtype=torch.int32, device=src.device)
-    tri[:, 0:3] = src[:, 0:3]
-    tri[:, 4:7] = src[:, 3:6]
-    tri[:, 8:11] = src[:, 6:9]
+    if woop:
+        geo = woop_records(bvh.tris[idx]).contiguous().view(torch.int32)
+        tri = torch.zeros((perm.shape[0], 16), dtype=torch.int32, device=geo.device)
+        tri[:, 0:12] = geo
+        meta = (12, 13)
+    else:
+        src = bvh.tris[idx].float().contiguous().view(torch.int32)
+        tri = torch.zeros((perm.shape[0], 12), dtype=torch.int32, device=src.device)
+        tri[:, 0:3] = src[:, 0:3]
+        tri[:, 4:7] = src[:, 3:6]
+        tri[:, 8:11] = src[:, 6:9]
+        meta = (3, 7)
     tri[~valid] = 0
-    tri[:, 3] = torch.where(valid, bvh.tri_flags[idx], 0)
-    tri[:, 7] = torch.where(valid, idx, -1)
+    tri[:, meta[0]] = torch.where(valid, bvh.tri_flags[idx], 0)
+    tri[:, meta[1]] = torch.where(valid, idx, -1)
     return Table8(node=node.view(torch.float32), tri=tri.view(torch.float32))
 
 
-def get_table8(bvh: BVH) -> Table8:
-    """The BVH's cached table, built on first use (and again after the BVH
-    moved to another device)."""
-    if bvh.table8 is None or bvh.table8.node.device != bvh.nodes8.device:
-        bvh.table8 = build_table8(bvh)
-    return bvh.table8
+def get_table8(bvh: BVH, woop: bool = False) -> Table8:
+    """The BVH's cached table with Moller-Trumbore records, or with plane
+    records with ``woop`` (each variant cached apart), built on first use
+    and again after the BVH moved to another device."""
+    field = "table8_woop" if woop else "table8"
+    table = getattr(bvh, field)
+    if table is None or table.node.device != bvh.nodes8.device:
+        table = build_table8(bvh, woop)
+        setattr(bvh, field, table)
+    return table
 
 
 def _canon_rays(o, d, t_min, t_max):
@@ -160,16 +229,19 @@ def child_distances(box: Tensor, o: Tensor, inv: Tensor, t_min: Tensor,
 
 
 def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
-             cull_backface: bool, counts: dict | None = None, boxes: int = 8):
+             cull_backface: bool, counts: dict | None = None, boxes: int = 8,
+             leaf_test=moller_trumbore):
     """Lockstep traversal: every live ray makes one node or leaf visit per
     step, exactly as one thread of a traversal kernel does.
 
     ``node_step(node, o, inv, t_min, best)`` returns (first, push_list,
     push, descend) for a batch of node visits: the child to descend into,
     (R, W) entries pushed in column order where ``push`` is set, and
-    whether any child was hit.  ``leaf_fetch(slot)`` returns (v0, e1, e2,
-    flags, tid) of triangle records.  Returns (t, u, v, tri, backface,
-    hit) tensors over the rays.
+    whether any child was hit.  ``leaf_fetch(slot)`` returns the triangle
+    records' geometry (the arguments of ``leaf_test`` after o and d: v0,
+    e1, e2 for ``moller_trumbore``), flags and tid.  ``leaf_test`` returns
+    (t, u, v, det) with Moller-Trumbore's sign of det (``plane_test`` gives
+    -(n.d)).  Returns (t, u, v, tri, backface, hit) tensors over the rays.
 
     With ``counts`` (a dict), the work the kernel does for these rays is
     added to it: "box_tests" (``boxes`` slab tests per node visit) and
@@ -220,10 +292,10 @@ def lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit: bool,
             for j in range(int(count.max())):
                 m = j < count
                 s = torch.where(m, start + j, 0)
-                v0, e1, e2, flags, tid = leaf_fetch(s)
+                *geo, flags, tid = leaf_fetch(s)
                 tested = m & ((flags & 6) != 0)
                 n_tri += (tested & ~hit_l).sum() if any_hit else tested.sum()
-                t, tu, tv, det = moller_trumbore(ol, dl, v0, e1, e2)
+                t, tu, tv, det = leaf_test(ol, dl, *geo)
                 valid = (
                     m & ((flags & 6) != 0) & (det.abs() > DET_EPS)
                     & (tu >= 0.0) & (tv >= 0.0) & (tu + tv <= 1.0)
@@ -286,10 +358,16 @@ def _traverse_plain(table: Table8, o, d, t_min, t_max, any_hit: bool,
 
     def leaf_fetch(s):
         rec, m = table.tri[s], meta[s]
-        return rec[:, 0:3], rec[:, 4:7], rec[:, 8:11], m[:, 0], m[:, 1]
+        if table.woop:
+            geo = (rec[:, 0:3], rec[:, 3], rec[:, 4:7], rec[:, 7], rec[:, 8:11],
+                   rec[:, 11])
+        else:
+            geo = (rec[:, 0:3], rec[:, 4:7], rec[:, 8:11])
+        return *geo, m[:, 0], m[:, 1]
 
     return lockstep(node_step, leaf_fetch, o, d, t_min, t_max, any_hit, cull_backface,
-                    counts, boxes=8)
+                    counts, boxes=8,
+                    leaf_test=plane_test if table.woop else moller_trumbore)
 
 
 def closest_plain(table: Table8, o, d, t_min, t_max, cull_backface=True,
@@ -328,10 +406,24 @@ def cuda_library() -> ctypes.CDLL:
     cmd = [native.nvcc_path(), *native.NVCC_FLAGS,
            f"-DVRT_STACK_DEPTH={STACK_DEPTH}", f"-I{native.CSRC_DIR}"]
     path = native.build_library("bvh8_traverse", cmd, sources, headers)
+    closest = (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P, _P])
+    blocked = (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P, _P])
     return native.load_library(path, {
-        "vrt_bvh8_closest": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P, _P, _P]),
-        "vrt_bvh8_any": (_I, _TABLE_ARGS + _RAY_ARGS + [_P, _P, _P]),
+        "vrt_bvh8_closest": closest, "vrt_bvh8_any": blocked,
+        "vrt_bvh8_woop_closest": closest, "vrt_bvh8_woop_any": blocked,
     })
+
+
+def launches_by_kind() -> dict:
+    """Kernel launches so far by query ("closest", "any"), over both leaf
+    tests."""
+    return {kind: LAUNCHES[kind] + LAUNCHES[f"woop_{kind}"] for kind in ("closest", "any")}
+
+
+def _kind(table: Table8, kind: str) -> str:
+    """The specialization of ``kind`` ("closest", "any") for the table's
+    leaf test: its ``LAUNCHES`` key, and its C entry after "vrt_bvh8_"."""
+    return f"woop_{kind}" if table.woop else kind
 
 
 def _check(table: Table8, o, d, t_min, t_max, device_type: str) -> None:
@@ -360,7 +452,8 @@ def ray_queue(device) -> Tensor:
 
 
 def closest_cuda(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
-    """Launch the closest-hit kernel on the current stream."""
+    """Launch the closest-hit kernel of the table's leaf test on the
+    current stream."""
     o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
     _check(table, o, d, t_min, t_max, "cuda")
     lib = cuda_library()
@@ -370,36 +463,39 @@ def closest_cuda(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
     tri = torch.empty((r,), dtype=torch.int32, device=o.device)
     bf = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
+        kind = _kind(table, "closest")
         counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
-            err = lib.vrt_bvh8_closest(
+            err = getattr(lib, f"vrt_bvh8_{kind}")(
                 *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
                 *_ptrs(counter, t, u, v, tri, bf),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
-            raise RuntimeError(f"bvh8 closest-hit launch failed: cudaError {err}")
-        LAUNCHES["closest"] += 1
+            raise RuntimeError(f"bvh8 {kind} launch failed: cudaError {err}")
+        LAUNCHES[kind] += 1
     return Hit(t=t, u=u, v=v, tri=tri, backface=bf)
 
 
 def any_cuda(table: Table8, o, d, t_min, t_max) -> Tensor:
-    """Launch the any-hit kernel on the current stream."""
+    """Launch the any-hit kernel of the table's leaf test on the current
+    stream."""
     o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
     _check(table, o, d, t_min, t_max, "cuda")
     lib = cuda_library()
     r = o.shape[0]
     out = torch.empty((r,), dtype=torch.bool, device=o.device)
     if r:
+        kind = _kind(table, "any")
         counter = ray_queue(o.device)
         with torch.cuda.device(o.device):
-            err = lib.vrt_bvh8_any(
+            err = getattr(lib, f"vrt_bvh8_{kind}")(
                 *_ptrs(*table, o, d, t_min, t_max), r, *_ptrs(counter, out),
                 torch.cuda.current_stream(o.device).cuda_stream,
             )
         if err:
-            raise RuntimeError(f"bvh8 any-hit launch failed: cudaError {err}")
-        LAUNCHES["any"] += 1
+            raise RuntimeError(f"bvh8 {kind} launch failed: cudaError {err}")
+        LAUNCHES[kind] += 1
     return out
 
 
@@ -415,9 +511,11 @@ def twin_library() -> ctypes.CDLL:
     path = native.build_library(
         "bvh8_twin", cmd, [native.CSRC_DIR / "bvh8_twin.cpp"], headers
     )
+    closest = (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P])
+    blocked = (_I, _TABLE_ARGS + _RAY_ARGS + [_P])
     return native.load_library(path, {
-        "vrt_bvh8_closest_cpu": (_I, _TABLE_ARGS + _RAY_ARGS + [_I, _P, _P, _P, _P, _P]),
-        "vrt_bvh8_any_cpu": (_I, _TABLE_ARGS + _RAY_ARGS + [_P]),
+        "vrt_bvh8_closest_cpu": closest, "vrt_bvh8_any_cpu": blocked,
+        "vrt_bvh8_woop_closest_cpu": closest, "vrt_bvh8_woop_any_cpu": blocked,
         "vrt_bvh8_sort8_cpu": (_I, [_P, _P, _I]),
     })
 
@@ -443,7 +541,7 @@ def closest_twin(table: Table8, o, d, t_min, t_max, cull_backface=True) -> Hit:
     u, v = torch.empty_like(t), torch.empty_like(t)
     tri = torch.empty((r,), dtype=torch.int32)
     bf = torch.empty((r,), dtype=torch.bool)
-    twin_library().vrt_bvh8_closest_cpu(
+    getattr(twin_library(), f"vrt_bvh8_{_kind(table, 'closest')}_cpu")(
         *_ptrs(*table, o, d, t_min, t_max), r, int(cull_backface),
         *_ptrs(t, u, v, tri, bf),
     )
@@ -454,7 +552,7 @@ def any_twin(table: Table8, o, d, t_min, t_max) -> Tensor:
     o, d, t_min, t_max = _canon_rays(o, d, t_min, t_max)
     _check(table, o, d, t_min, t_max, "cpu")
     out = torch.empty((o.shape[0],), dtype=torch.bool)
-    twin_library().vrt_bvh8_any_cpu(
+    getattr(twin_library(), f"vrt_bvh8_{_kind(table, 'any')}_cpu")(
         *_ptrs(*table, o, d, t_min, t_max), o.shape[0], out.data_ptr()
     )
     return out
@@ -465,8 +563,8 @@ def any_twin(table: Table8, o, d, t_min, t_max) -> Tensor:
 
 def intersect_closest(bvh: BVH, o, d, t_min, t_max, cull_backface=True) -> Hit:
     """Closest hit over the BVH: the kernel for CUDA rays, the plain
-    version for CPU rays."""
-    table = get_table8(bvh)
+    version for CPU rays; the plane leaf test where ``WOOP_DEFAULT``."""
+    table = get_table8(bvh, WOOP_DEFAULT)
     if o.device.type == "cuda":
         return closest_cuda(table, o, d, t_min, t_max, cull_backface)
     if o.device.type == "cpu":
@@ -476,8 +574,9 @@ def intersect_closest(bvh: BVH, o, d, t_min, t_max, cull_backface=True) -> Hit:
 
 def intersect_any(bvh: BVH, o, d, t_min, t_max) -> Tensor:
     """Occlusion of [t_min, t_max] (no culling): the kernel for CUDA rays,
-    the plain version for CPU rays."""
-    table = get_table8(bvh)
+    the plain version for CPU rays; the plane leaf test where
+    ``WOOP_DEFAULT``."""
+    table = get_table8(bvh, WOOP_DEFAULT)
     if o.device.type == "cuda":
         return any_cuda(table, o, d, t_min, t_max)
     if o.device.type == "cpu":

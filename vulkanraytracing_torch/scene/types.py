@@ -140,9 +140,10 @@ class BVH:
     count)``.  ``nodes8``/``child8`` are the BVH8 collapse (empty slots:
     child 0 and a far box lo = hi = +3e38); ``tri_perm8[i]`` is the
     BVH-order triangle stored in aligned slot ``i`` (-1 = padding).
-    ``table8`` and ``table2`` cache the traversal kernels' tables
-    (``ops.traverse_wide8.Table8``, ``ops.traverse_wide.Table2``), built
-    on first use; a refit returns a new BVH with both empty, so a kernel
+    ``table8``, ``table8_woop`` and ``table2`` cache the traversal
+    kernels' tables (``ops.traverse_wide8.Table8`` with Moller-Trumbore
+    and with plane triangle records, ``ops.traverse_wide.Table2``), built
+    on first use; a refit returns a new BVH with all empty, so a kernel
     never traces a stale table."""
 
     nodes: Tensor        # (N, 12) f32: c0.lo c0.hi c1.lo c1.hi
@@ -154,6 +155,7 @@ class BVH:
     child8: Optional[Tensor] = None     # (M, 8) i32
     tri_perm8: Optional[Tensor] = None  # (T8,) i32
     table8: Optional[Any] = None
+    table8_woop: Optional[Any] = None
     table2: Optional[Any] = None
     topology: Optional[Topology] = None  # LBVH builds only
 
@@ -166,7 +168,7 @@ class BVH:
         """The same tree with its alpha-tested triangles no candidates (bit
         2 of the flags cleared), with tables of its own."""
         return dataclasses.replace(self, tri_flags=self.tri_flags & ~4, table8=None,
-                                   table2=None)
+                                   table8_woop=None, table2=None)
 
 
 class AlphaScene(NamedTuple):

@@ -54,10 +54,10 @@ def sync(device: torch.device) -> None:
 
 
 def bvh8_launches() -> dict:
-    """The BVH8 kernel's launches so far, by specialization."""
+    """The BVH8 kernel's launches so far, by query (either leaf test)."""
     from vulkanraytracing_torch.ops import traverse_wide8
 
-    return {kind: traverse_wide8.LAUNCHES[kind] for kind in ("closest", "any")}
+    return traverse_wide8.launches_by_kind()
 
 
 def report_launches(before: dict, what: str) -> dict:
