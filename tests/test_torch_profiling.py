@@ -1,14 +1,15 @@
 """``utils.profiling`` on the CPU: ``trace_scope``'s name is a range in a
-``torch.profiler`` trace and ``log=True`` logs its milliseconds as a
-``[TIME]`` line on stderr (as the JAX package's ``trace_scope`` does
-through its ``log_t``); ``profile_to`` writes a Chrome trace holding the
-ranges and the operators run inside it."""
+``torch.profiler`` trace while a session records and a shared no-op
+context otherwise, and ``span`` is the same around a whole function;
+``profile_to`` writes a Chrome trace holding the ranges and the
+operators run inside it."""
 
 import json
 
 import torch
 
-from vulkanraytracing_torch.utils.profiling import profile_to, trace_scope
+from vulkanraytracing_torch.utils import profiling
+from vulkanraytracing_torch.utils.profiling import profile_to, span, trace_scope
 
 
 def test_trace_scope_is_a_profiler_range():
@@ -18,14 +19,36 @@ def test_trace_scope_is_a_profiler_range():
     assert "vrt test scope" in {e.name for e in prof.events()}
 
 
-def test_trace_scope_logs(capsys):
-    with trace_scope("quiet scope"):
-        pass
-    assert "quiet scope" not in capsys.readouterr().err
-    with trace_scope("timed scope", log=True):
+def test_trace_scope_off_path(monkeypatch):
+    """With no profiler session a span is the shared no-op context: no
+    ``record_function``, nothing timed, nothing logged."""
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range opened with no profiler session")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling, "RANGE", refuse)
+    span = trace_scope("quiet scope")
+    assert span is trace_scope("another scope")
+    with span:
         torch.zeros(8).sum()
-    err = capsys.readouterr().err
-    assert "[TIME] timed scope:" in err and " ms" in err
+
+
+def test_span_wraps_a_whole_function(monkeypatch):
+    @span("vrt test function")
+    def add(x, y=1):
+        """Adds."""
+        return x + y
+
+    assert (add.__name__, add.__doc__) == ("add", "Adds.")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert add(1, y=2) == 3
+    (event,) = [e for e in prof.events() if e.name == "vrt test function"]
+
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range opened with no profiler session")
+
+    monkeypatch.setattr(profiling, "RANGE", refuse)
+    assert add(2) == 3
 
 
 def test_profile_to_writes_a_trace(tmp_path):

@@ -235,9 +235,11 @@ def test_trace_dispatch_by_bvh_shape(monkeypatch):
     cfg = Config(traversal=TraversalMode.BVH_KERNEL)
     flat = build_scene_bvh(tproc.cornell_box_scene(device="cpu"))
     geom, bvh2 = build_bvh(flat.geometry)
+    # no rays: the traversal counters read the rays' count
+    o, t = torch.zeros((0, 3)), torch.zeros((0,))
     for scene in (flat, flat._replace(geometry=geom, bvh=bvh2)):
-        trace.trace_closest(scene, cfg, None, None, None, None)
-        trace.trace_any(scene, cfg, None, None, None, None)
+        trace.trace_closest(scene, cfg, o, o, t, t)
+        trace.trace_any(scene, cfg, o, o, t, t)
     assert calls == ["8", "8any", "2", "2any"]
 
 

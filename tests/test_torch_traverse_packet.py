@@ -148,9 +148,11 @@ def test_trace_dispatches_each_mode(mode, monkeypatch):
     sah = build_scene_bvh(tproc.cornell_box_scene(device="cpu"), builder="sah")
     geom, bvh2 = build_bvh(sah.geometry)
     assert sah.bvh.nodes8 is not None
+    # no rays: the traversal counters read the rays' count
+    o, t = torch.zeros((0, 3)), torch.zeros((0,))
     for scene in (sah, sah._replace(geometry=geom, bvh=bvh2)):
-        trace.trace_closest(scene, cfg, None, None, None, None)
-        trace.trace_any(scene, cfg, None, None, None, None)
+        trace.trace_closest(scene, cfg, o, o, t, t)
+        trace.trace_any(scene, cfg, o, o, t, t)
     assert calls == ["closest", "any"] * 2
 
     flat = sah._replace(bvh=None)

@@ -41,6 +41,7 @@ from vulkanraytracing_torch.scene.types import (
     Topology,
     TraceGeometry,
 )
+from vulkanraytracing_torch.utils.profiling import span, trace_scope
 
 # Max triangles per leaf (4 bits of the leaf code hold the count; the BVH8
 # leaf alignment needs <= 8).
@@ -354,14 +355,19 @@ def _build(geometry: TraceGeometry, leaf_size: int, builder: str):
     if builder == "sah":
         from vulkanraytracing_torch.accel.sah import build_bvh_sah
 
-        geometry, bvh = build_bvh_sah(geometry, leaf_size)
+        with trace_scope("vrt.setup.build_scene_bvh.sah"):
+            geometry, bvh = build_bvh_sah(geometry, leaf_size)
     elif builder == "lbvh":
-        geometry, bvh = build_bvh(geometry, leaf_size)
+        with trace_scope("vrt.setup.build_scene_bvh.lbvh"):
+            geometry, bvh = build_bvh(geometry, leaf_size)
     else:
         raise ValueError(f"builder must be 'lbvh' or 'sah', got {builder!r}")
-    return geometry, collapse_bvh8(bvh)
+    with trace_scope("vrt.setup.build_scene_bvh.collapse"):
+        bvh = collapse_bvh8(bvh)
+    return geometry, bvh
 
 
+@span("vrt.setup.build_scene_bvh")
 def build_scene_bvh(
     scene: Scene, leaf_size: int = LEAF_SIZE, builder: str = "lbvh"
 ) -> Scene:
@@ -376,6 +382,7 @@ def build_scene_bvh(
     return _attach_alpha_set(scene._replace(geometry=geometry, bvh=bvh), leaf_size, builder)
 
 
+@span("vrt.setup.build_scene_bvh.alpha_subset")
 def _attach_alpha_set(scene: Scene, leaf_size: int, builder: str) -> Scene:
     """Build the tree of the alpha-tested triangles alone
     (``scene.types.AlphaScene``) and the main tree's opaque view, when the

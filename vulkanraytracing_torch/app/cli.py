@@ -12,14 +12,17 @@ images (PNG or .npy), the parity metric.  ``--devices N`` shards the
 path-traced frame's pixel rows over N devices (``parallel``): the first N
 cards, or with ``--device cpu`` N shards on the host (the JAX package's
 ``VRT_NUM_CPU_DEVICES``); the image equals one device's bit for bit.
-``bench`` runs ``vulkanraytracing_torch.bench`` (Mrays/s of the 1080p
-Sponza-like frame, one JSON line) with the same ``--devices`` and
-``--device``.
+``render --profile DIR`` writes a ``torch.profiler`` Chrome trace of the
+set-up and the frames into DIR, with the port's ``vrt.*`` spans over the
+operators and kernels.  ``bench`` runs ``vulkanraytracing_torch.bench``
+(Mrays/s of the 1080p Sponza-like frame, one JSON line) with the same
+``--devices`` and ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -156,16 +159,19 @@ def _engine(args, **cfg_kw) -> Engine:
 def cmd_render(args) -> int:
     from vulkanraytracing_torch.app.image_io import write_png, write_radiance_npy
     from vulkanraytracing_torch.utils import ScopeTime, log_i
+    from vulkanraytracing_torch.utils.profiling import profile_to
 
-    engine = _engine(args, parity_quantization=not args.hdr_accumulation,
-                     tone_map_before_accumulation=not args.hdr_accumulation)
-    if args.resume:
-        engine.load_checkpoint(args.resume)
-        log_i(f"resumed at spp {int(engine.state.accum_index)}")
+    # --profile: one trace of the set-up and the frames, with the vrt.* spans
+    with profile_to(args.profile) if args.profile else contextlib.nullcontext():
+        engine = _engine(args, parity_quantization=not args.hdr_accumulation,
+                         tone_map_before_accumulation=not args.hdr_accumulation)
+        if args.resume:
+            engine.load_checkpoint(args.resume)
+            log_i(f"resumed at spp {int(engine.state.accum_index)}")
 
-    frames = 1 if args.mode == "hybrid" else args.spp
-    with ScopeTime(f"render {frames} frame(s)"):
-        engine.run(frames)
+        frames = 1 if args.mode == "hybrid" else args.spp
+        with ScopeTime(f"render {frames} frame(s)"):
+            engine.run(frames)
 
     for line in engine.hud_lines():
         log_i(line)
@@ -246,6 +252,9 @@ def main(argv=None) -> int:
         help="accumulate linear HDR instead of the reference's tone-mapped RGBA8")
     render.add_argument("--checkpoint", default=None, help="save render state")
     render.add_argument("--resume", default=None, help="resume render state")
+    render.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a Chrome trace of the set-up and the frames into DIR")
     render.set_defaults(fn=cmd_render)
 
     view = sub.add_parser("view", help="interactive terminal viewer (WASD fly camera)")

@@ -51,8 +51,8 @@ from vulkanraytracing_torch.pt.render import (
 )
 from vulkanraytracing_torch.scene.camera import Camera
 from vulkanraytracing_torch.scene.types import Scene
-from vulkanraytracing_torch.utils import Timer, log_i
-from vulkanraytracing_torch.utils.profiling import RayCounter
+from vulkanraytracing_torch.utils import Timer, log_i, profiling
+from vulkanraytracing_torch.utils.profiling import RayCounter, trace_scope
 
 
 class Engine:
@@ -195,26 +195,38 @@ class Engine:
         self.state = reset_accumulation(self.state)
 
     def draw(self) -> None:
-        """One frame with the active render mode."""
-        dt = self.timer.get_delta_seconds()
-        for system in self.systems:
-            system.process(dt)
+        """One frame with the active render mode, in a ``vrt.frame`` span;
+        its counts become ``utils.profiling.frame_counts``."""
+        profiling.begin_frame()
+        with trace_scope("vrt.frame"):
+            self._draw()
+        profiling.end_frame()
 
-        self._advance_animation()
+    def _draw(self) -> None:
+        dt = self.timer.get_delta_seconds()
+        with trace_scope("vrt.systems"):
+            for system in self.systems:
+                system.process(dt)
+
+        with trace_scope("vrt.animate"):
+            self._advance_animation()
         camera = self._device_camera()
         if self.render_mode == RenderMode.HYBRID:
-            image = render_hybrid(self.scene, self.cfg, camera)
+            with trace_scope("vrt.render"):
+                image = render_hybrid(self.scene, self.cfg, camera)
             self.state = RenderState(accumulation=image, accum_index=self.state.accum_index)
             return
-        if self.mesh is not None:
-            if self._replicas[0] is not self.scene:
-                # a new (e.g. refitted) scene goes to every other device once
-                self._replicas = (self.scene, replicate_scene(self.scene, self.mesh))
-            self.state, stats = shard_render_frame(self._replicas[1], self.cfg, camera,
-                                                   self.state, self.mesh)
-        else:
-            self.state, stats = render_frame(self.scene, self.cfg, camera, self.state)
-        rays = float(stats.rays)  # a readback every frame, as the reference
+        with trace_scope("vrt.render"):
+            if self.mesh is not None:
+                if self._replicas[0] is not self.scene:
+                    # a new (e.g. refitted) scene goes to every other device once
+                    self._replicas = (self.scene, replicate_scene(self.scene, self.mesh))
+                self.state, stats = shard_render_frame(self._replicas[1], self.cfg, camera,
+                                                       self.state, self.mesh)
+            else:
+                self.state, stats = render_frame(self.scene, self.cfg, camera, self.state)
+        with profiling.host_sync("rays"):
+            rays = float(stats.rays)  # a readback every frame, as the reference
         self.total_rays += rays
         self.ray_counter.add(rays)
 

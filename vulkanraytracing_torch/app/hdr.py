@@ -11,7 +11,10 @@ from pathlib import Path
 
 import numpy as np
 
+from vulkanraytracing_torch.utils.profiling import span
 
+
+@span("vrt.setup.read_hdr")
 def read_hdr(path: str | Path) -> np.ndarray:
     """Read a Radiance .hdr file -> (H, W, 3) float32 linear radiance."""
     data = Path(path).read_bytes()

@@ -41,6 +41,7 @@ from vulkanraytracing_torch.env.panorama import (
 )
 from vulkanraytracing_torch.pt.bsdf import importance_sample_ggx, vis_schlick
 from vulkanraytracing_torch.scene.types import Environment
+from vulkanraytracing_torch.utils.profiling import span
 
 # float32 elements of one (rows, T) block of the convolutions (512 MiB)
 BLOCK_ELEMENTS = 1 << 27
@@ -184,6 +185,7 @@ def compute_brdf_lut(size: int = 256, sample_count: int = 4096,
     return (acc / sample_count).T.reshape(size, size, 2).contiguous()
 
 
+@span("vrt.setup.bake_ibl")
 def bake_ibl(env: Environment, irradiance_size: int = 128, reflection_size: int = 512,
              brdf_size: int = 256) -> Environment:
     """The environment with its IBL fields filled, on the panorama's

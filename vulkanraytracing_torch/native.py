@@ -23,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from vulkanraytracing_torch.utils.profiling import trace_scope
+
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "build"
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -69,7 +71,8 @@ def build_library(
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
     cmd = [*command, "-o", str(tmp), *(str(s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with trace_scope("vrt.setup.build_library"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(

@@ -31,6 +31,7 @@ import torch
 from torch import Tensor
 
 from vulkanraytracing_torch.accel.lbvh import morton_codes
+from vulkanraytracing_torch.utils.profiling import span
 
 
 class GlobalOrder(NamedTuple):
@@ -82,6 +83,7 @@ def unapply_order(order: GlobalOrder, *arrays: Tensor) -> tuple[Tensor, ...]:
     return tuple(a.index_select(0, order.inv) for a in arrays)
 
 
+@span("vrt.sort")
 def sort_wavefront(o: Tensor, d: Tensor, t_min: Tensor, t_max: Tensor,
                    root_lo: Tensor, root_hi: Tensor, arrays) -> tuple[Tensor, ...]:
     """Coherence-sort a wavefront: every array of ``arrays`` ((R,) or

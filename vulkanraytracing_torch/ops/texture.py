@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from vulkanraytracing_torch.utils.profiling import span
+
 # address modes (a subset of vk::SamplerAddressMode)
 WRAP_REPEAT = 0
 WRAP_CLAMP = 1
@@ -262,6 +264,7 @@ def _trilinear(pool, tid, ws, wt, uv, lod):
     return c0 * (1.0 - frac) + c1 * frac
 
 
+@span("vrt.texture")
 def sample_pool(pool: TexturePool, tex_id: Tensor, uv: Tensor,
                 footprint: "Tensor | AnisoFootprint | None" = None) -> Tensor:
     """Filtered fetch: (R,) texture ids and (R, 2) uv -> (R, 4) in [0, 1].

@@ -53,6 +53,7 @@ from vulkanraytracing_torch.ops import (
 from vulkanraytracing_torch.ops.intersect import BIG_T, Hit
 from vulkanraytracing_torch.ops.texture import sample_pool
 from vulkanraytracing_torch.scene.types import BVH, Scene
+from vulkanraytracing_torch.utils.profiling import count, count_traversal, span, trace_scope
 
 # Transparency layers resolved per ray before a hit is given up (the
 # reference's any-hit loop is unbounded; 4 covers cutout stacks).
@@ -86,15 +87,19 @@ def _backend(mode: TraversalMode, bvh: BVH):
 def traverse_closest(cfg: Config, bvh: BVH, o: Tensor, d: Tensor, t_min: Tensor,
                      t_max: Tensor, cull_backface: bool) -> Hit:
     """One closest-hit traversal of ``bvh`` by the mode's backend."""
-    closest, _ = _backend(cfg.traversal, bvh)
-    return closest(bvh, o, d, t_min, t_max, cull_backface=cull_backface)
+    count_traversal("closest", o.shape[0])
+    with trace_scope("vrt.traverse"):
+        closest, _ = _backend(cfg.traversal, bvh)
+        return closest(bvh, o, d, t_min, t_max, cull_backface=cull_backface)
 
 
 def traverse_any(cfg: Config, bvh: BVH, o: Tensor, d: Tensor, t_min: Tensor,
                  t_max: Tensor) -> Tensor:
     """One any-hit traversal of ``bvh`` by the mode's backend."""
-    _, blocked = _backend(cfg.traversal, bvh)
-    return blocked(bvh, o, d, t_min, t_max)
+    count_traversal("any", o.shape[0])
+    with trace_scope("vrt.traverse"):
+        _, blocked = _backend(cfg.traversal, bvh)
+        return blocked(bvh, o, d, t_min, t_max)
 
 
 def _hit_alpha(scene: Scene, hit: Hit) -> tuple[Tensor, Tensor]:
@@ -146,10 +151,12 @@ def _opaque_view(scene: Scene) -> Scene:
                           alpha=None)
 
 
+@span("vrt.alpha")
 def _closest_alpha_subset(scene: Scene, cfg: Config, o, d, t_min, t_max,
                           cull_backface: bool) -> Hit:
     """The closest passing cutout hit over the subset's tree, with the
-    re-trace loop confined to the subset; ``tri`` is the scene's id."""
+    re-trace loop confined to the subset; ``tri`` is the scene's id.  Its
+    traversals count again under ``cutout``."""
     alpha = scene.alpha
     sub = scene._replace(geometry=alpha.geometry, bvh=alpha.bvh, alpha=None)
     if cfg.traversal == TraversalMode.BRUTE_FORCE:
@@ -158,6 +165,8 @@ def _closest_alpha_subset(scene: Scene, cfg: Config, o, d, t_min, t_max,
                                                      cull_backface=cull_backface)
     else:
         def trace_fn(lo_t, hi_t):
+            count("traversal_calls.cutout")
+            count("traversal_lanes.cutout", o.shape[0])
             return traverse_closest(cfg, sub.bvh, o, d, lo_t, hi_t, cull_backface)
 
     hit = _resolve_alpha(sub, trace_fn, trace_fn(t_min, t_max), t_max)
@@ -173,6 +182,7 @@ def _merge_closest(hit_a: Hit, hit_b: Hit) -> Hit:
     return Hit(*[torch.where(better, a, b) for a, b in zip(hit_a, hit_b)])
 
 
+@span("vrt.trace.closest")
 def trace_closest(
     scene: Scene, cfg: Config, o: Tensor, d: Tensor, t_min: Tensor,
     t_max: Tensor, cull_backface: bool = True, reorder: bool = False,
@@ -207,10 +217,12 @@ def trace_closest(
         hit = trace_fn(t_min, t_max)
     if use_alpha:
         # the re-trace rounds run in the rays' own order
-        hit = _resolve_alpha(scene, trace_fn, hit, t_max)
+        with trace_scope("vrt.alpha"):
+            hit = _resolve_alpha(scene, trace_fn, hit, t_max)
     return hit
 
 
+@span("vrt.trace.any")
 def trace_any(
     scene: Scene, cfg: Config, o: Tensor, d: Tensor, t_min: Tensor,
     t_max: Tensor, reorder: bool = False,

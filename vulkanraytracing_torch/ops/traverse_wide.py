@@ -53,6 +53,7 @@ from vulkanraytracing_torch.ops.traverse_wide8 import (
     ray_queue,
 )
 from vulkanraytracing_torch.scene.types import BVH
+from vulkanraytracing_torch.utils.profiling import host_sync
 
 # Kernel launches per specialization ("closest2", "any2"), counted by the
 # CUDA wrappers only.
@@ -98,7 +99,9 @@ def stack_need(bvh: BVH) -> int:
     on the host."""
     if bvh.topology is not None:
         return bvh.topology.stack_need
-    return worst_case_stack(bvh.child_index.cpu().numpy())
+    with host_sync("table2"):
+        child = bvh.child_index.cpu().numpy()
+    return worst_case_stack(child)
 
 
 def build_table2(bvh: BVH) -> Table2:

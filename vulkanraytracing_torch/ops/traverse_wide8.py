@@ -47,6 +47,7 @@ from vulkanraytracing_torch.ops.intersect import (
     BIG_T, DET_EPS, Hit, moller_trumbore, plane_test,
 )
 from vulkanraytracing_torch.scene.types import BVH
+from vulkanraytracing_torch.utils.profiling import host_sync
 
 # Per-ray stack entries.  Every traversal kernel (BVH8 here; BVH2 and the
 # packet kernels import it) is compiled with this depth, and build_table8 /
@@ -152,7 +153,9 @@ def build_table8(bvh: BVH, woop: bool = False) -> Table8:
     need exceeds ``STACK_DEPTH``: the kernel has no overflow path."""
     if bvh.nodes8 is None:
         raise ValueError("the BVH has no 8-wide collapse (accel.bvh8.collapse_bvh8)")
-    need = _worst_case_stack(bvh.child8.cpu().numpy())
+    with host_sync("table8"):
+        child8 = bvh.child8.cpu().numpy()
+    need = _worst_case_stack(child8)
     if need > STACK_DEPTH:
         raise ValueError(
             f"BVH8 needs a traversal stack of {need} > {STACK_DEPTH} entries"

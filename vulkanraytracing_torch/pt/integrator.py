@@ -40,6 +40,7 @@ from vulkanraytracing_torch.pt import bsdf as bsdf_mod
 from vulkanraytracing_torch.pt.surface import texture_slots_used, unpack_material
 from vulkanraytracing_torch.scene.camera import CameraPT
 from vulkanraytracing_torch.scene.types import PointLights, Scene
+from vulkanraytracing_torch.utils.profiling import host_sync, span, trace_scope
 
 BIG_T = 3.0e38
 
@@ -61,7 +62,8 @@ def primary_rays(camera: CameraPT, px: Tensor, py: Tensor, width: int,
     """Camera rays with sub-pixel jitter.  The jitter draws from a copy of
     the RNG state: the caller keeps its (s0, s1)."""
     jitter, _, _ = rng.next_vec2(s0, s1)
-    size = torch.tensor([width, height], dtype=torch.float32, device=px.device)
+    with host_sync("pixel_size"):  # a copy from pageable host memory
+        size = torch.tensor([width, height], dtype=torch.float32, device=px.device)
     pix = torch.stack([px, py], dim=-1).to(torch.float32)
     uv = (pix + jitter) / size
     xy = uv * 2.0 - 1.0
@@ -108,6 +110,7 @@ def _estimate_point_lights(lights: PointLights, n: Tensor, p: Tensor) -> Tensor:
     return lum * nol / torch.clamp_min(dist_sq, 1e-20)
 
 
+@span("vrt.nee")
 def sample_point_light(lights: PointLights, n: Tensor, p: Tensor, s0: Tensor,
                        s1: Tensor):
     """Irradiance-proportional CDF selection, one uniform draw per call.
@@ -182,157 +185,160 @@ def pathtrace(
     sun_d = sun_dir.expand(r, 3).contiguous()
 
     for bounce in range(cfg.max_bounce_count):
-        if bounce == 0 and scene.has_point_lights:
-            pl_hit = (pl_t >= 0.0) & (hit.is_miss | (pl_t < hit.t)) & alive
-            irradiance = torch.where(pl_hit[:, None], pl_color, irradiance)
-            alive &= ~pl_hit
+        with trace_scope("vrt.bounce"):
+            with trace_scope("vrt.shade"):
+                if bounce == 0 and scene.has_point_lights:
+                    pl_hit = (pl_t >= 0.0) & (hit.is_miss | (pl_t < hit.t)) & alive
+                    irradiance = torch.where(pl_hit[:, None], pl_color, irradiance)
+                    alive &= ~pl_hit
 
-        env_col = sample_environment(scene.environment, d)
-        miss = hit.is_miss & alive
-        irradiance += torch.where(
-            miss[:, None], env_col * throughput / ray_pdf[:, None], 0.0
-        )
-        alive &= ~miss
-
-        attrs = fetch_surface_attributes(geom, hit)
-        unpacked = unpack_material(scene, attrs, slots=slots)
-        surface, tbn = unpacked.surface, unpacked.tbn
-        n_shading = tbn[..., 2]
-
-        irradiance += torch.where(
-            alive[:, None], surface.emission * throughput / ray_pdf[:, None], 0.0
-        )
-
-        p = o + d * hit.t[:, None]
-        wo = math3d.normalize(math3d.world_to_tangent(-d, tbn))
-        shadow_origin = p + n_shading * BIAS
-
-        # next-event estimation: contributions use the pre-BSDF-update
-        # throughput and pdf; the visibility rays are traced below
-        sh_tmax_sun = torch.where(alive, RAY_MAX_T, 0.0)
-        if scene.has_point_lights:
-            lights = scene.point_lights
-            idx, light_pdf, s0, s1 = sample_point_light(
-                lights, n_shading, p, s0, s1
-            )
-            lpos = lights.position[idx, :3]
-            lcol = lights.color[idx, :3]
-            delta = lpos - p
-            dist_sq = math3d.dot(delta, delta)
-            attenuation = math3d.rcp(dist_sq)
-            ldir = math3d.normalize(delta)
-            wi_l = math3d.world_to_tangent(ldir, tbn)
-            wh_l = math3d.normalize(wo + wi_l)
-            pl_bsdf = bsdf_mod.evaluate_bsdf(surface, wo, wi_l, wh_l)
-            pl_contrib = (
-                pl_bsdf
-                * math3d.cos_theta_tangent(wi_l)[:, None]
-                * lcol
-                * (attenuation / torch.clamp_min(light_pdf, 1e-20))[:, None]
-            )
-            pl_contrib = torch.where(
-                alive[:, None], pl_contrib * throughput / ray_pdf[:, None], 0.0
-            )
-            sh_tmax_pl = torch.where(alive, torch.sqrt(dist_sq), 0.0)
-        wi_s = math3d.world_to_tangent(sun_d, tbn)
-        wh_s = math3d.normalize(wo + wi_s)
-        sun_bsdf = bsdf_mod.evaluate_bsdf(surface, wo, wi_s, wh_s)
-        sun_contrib = sun_bsdf * math3d.cos_theta_tangent(wi_s)[:, None] * sun_color
-        sun_contrib = torch.where(
-            alive[:, None], sun_contrib * throughput / ray_pdf[:, None], 0.0
-        )
-
-        b, wi, pdf, s0, s1 = bsdf_mod.sample_bsdf(surface, wo, s0, s1)
-        dead = (pdf < EPSILON) | (math3d.dot(b, b) < EPSILON)
-        alive &= ~dead
-        step_throughput = b * math3d.cos_theta_tangent(wi)[:, None]
-        throughput = torch.where(alive[:, None], throughput * step_throughput,
-                                 throughput)
-        ray_pdf = torch.where(alive, ray_pdf * pdf, ray_pdf)
-
-        if bounce >= cfg.min_bounce_count:
-            threshold = torch.clamp_min(
-                1.0 - math3d.max_component(throughput), cfg.rr_min_threshold
-            )
-            rr, s0, s1 = rng.next_float(s0, s1)
-            alive &= ~(rr < threshold)
-            throughput = torch.where(
-                alive[:, None], throughput / (1.0 - threshold)[:, None], throughput
-            )
-
-        o = p
-        d = math3d.tangent_to_world(wi, tbn)
-        t_min = full(RAY_MIN_T)
-        # dead rays get a zero-length window so traversal exits at once
-        t_max = torch.where(alive, RAY_MAX_T, 0.0)
-
-        def nee_trace(flip_pl: bool) -> tuple[Tensor, Tensor]:
-            """Trace the visibility rays of the current state (gated by the
-            pre-roulette aliveness); returns the irradiance with the
-            unshadowed contributions they pass added, and the ray count."""
-            nee_alive = sh_tmax_sun > 0.0
-            if scene.has_point_lights:
-                if flip_pl:
-                    pl_o = shadow_origin + ldir * sh_tmax_pl[:, None]
-                    pl_d = -ldir
-                    pl_tmax = torch.where(
-                        sh_tmax_pl > 0.0,
-                        torch.clamp_min(sh_tmax_pl - RAY_MIN_T, 0.0),
-                        -1.0,
-                    )
-                    pl_tmin = full(0.0)
-                else:
-                    pl_o, pl_d, pl_tmax = shadow_origin, ldir, sh_tmax_pl
-                    pl_tmin = full(RAY_MIN_T)
-                occ = trace.trace_any(
-                    scene, cfg,
-                    torch.cat([pl_o, shadow_origin]),
-                    torch.cat([pl_d, sun_d]),
-                    torch.cat([pl_tmin, full(RAY_MIN_T)]),
-                    torch.cat([pl_tmax, sh_tmax_sun]),
+                env_col = sample_environment(scene.environment, d)
+                miss = hit.is_miss & alive
+                irradiance += torch.where(
+                    miss[:, None], env_col * throughput / ray_pdf[:, None], 0.0
                 )
-                occluded, sun_occluded = occ[:r], occ[r:]
-                lit = irradiance + torch.where(occluded[:, None], 0.0, pl_contrib)
-                cast = rays_cast + 2 * nee_alive.sum()
-            else:
-                sun_occluded = trace.trace_any(
-                    scene, cfg, shadow_origin, sun_d, full(RAY_MIN_T), sh_tmax_sun
+                alive &= ~miss
+
+                attrs = fetch_surface_attributes(geom, hit)
+                unpacked = unpack_material(scene, attrs, slots=slots)
+                surface, tbn = unpacked.surface, unpacked.tbn
+                n_shading = tbn[..., 2]
+
+                irradiance += torch.where(
+                    alive[:, None], surface.emission * throughput / ray_pdf[:, None], 0.0
                 )
-                lit, cast = irradiance, rays_cast + nee_alive.sum()
-            return lit + torch.where(sun_occluded[:, None], 0.0, sun_contrib), cast
 
-        if bounce == 0:
-            irradiance, rays_cast = nee_trace(flip_pl=False)
+                p = o + d * hit.t[:, None]
+                wo = math3d.normalize(math3d.world_to_tangent(-d, tbn))
+                shadow_origin = p + n_shading * BIAS
 
-        if do_sort:
-            lo, hi = trace.root_bounds(scene.bvh)
-            core = (o, d, t_min, t_max, irradiance, throughput, ray_pdf,
-                    s0, s1, alive, valid, ray_slot)
-            if bounce == 0:
-                shadow_cols = ()
-            elif scene.has_point_lights:
-                shadow_cols = (shadow_origin, sh_tmax_sun, sun_contrib,
-                               ldir, sh_tmax_pl, pl_contrib)
-            else:
-                shadow_cols = (shadow_origin, sh_tmax_sun, sun_contrib)
-            out = reorder.sort_wavefront(o, d, t_min, t_max, lo, hi,
-                                         (*core, *shadow_cols))
-            (o, d, t_min, t_max, irradiance, throughput, ray_pdf,
-             s0, s1, alive, valid, ray_slot) = out[:12]
-            if bounce > 0:
+                # next-event estimation: contributions use the pre-BSDF-update
+                # throughput and pdf; the visibility rays are traced below
+                sh_tmax_sun = torch.where(alive, RAY_MAX_T, 0.0)
                 if scene.has_point_lights:
-                    (shadow_origin, sh_tmax_sun, sun_contrib,
-                     ldir, sh_tmax_pl, pl_contrib) = out[12:]
+                    lights = scene.point_lights
+                    idx, light_pdf, s0, s1 = sample_point_light(
+                        lights, n_shading, p, s0, s1
+                    )
+                    lpos = lights.position[idx, :3]
+                    lcol = lights.color[idx, :3]
+                    delta = lpos - p
+                    dist_sq = math3d.dot(delta, delta)
+                    attenuation = math3d.rcp(dist_sq)
+                    ldir = math3d.normalize(delta)
+                    wi_l = math3d.world_to_tangent(ldir, tbn)
+                    wh_l = math3d.normalize(wo + wi_l)
+                    pl_bsdf = bsdf_mod.evaluate_bsdf(surface, wo, wi_l, wh_l)
+                    pl_contrib = (
+                        pl_bsdf
+                        * math3d.cos_theta_tangent(wi_l)[:, None]
+                        * lcol
+                        * (attenuation / torch.clamp_min(light_pdf, 1e-20))[:, None]
+                    )
+                    pl_contrib = torch.where(
+                        alive[:, None], pl_contrib * throughput / ray_pdf[:, None], 0.0
+                    )
+                    sh_tmax_pl = torch.where(alive, torch.sqrt(dist_sq), 0.0)
+                wi_s = math3d.world_to_tangent(sun_d, tbn)
+                wh_s = math3d.normalize(wo + wi_s)
+                sun_bsdf = bsdf_mod.evaluate_bsdf(surface, wo, wi_s, wh_s)
+                sun_contrib = sun_bsdf * math3d.cos_theta_tangent(wi_s)[:, None] * sun_color
+                sun_contrib = torch.where(
+                    alive[:, None], sun_contrib * throughput / ray_pdf[:, None], 0.0
+                )
+
+                b, wi, pdf, s0, s1 = bsdf_mod.sample_bsdf(surface, wo, s0, s1)
+                dead = (pdf < EPSILON) | (math3d.dot(b, b) < EPSILON)
+                alive &= ~dead
+                step_throughput = b * math3d.cos_theta_tangent(wi)[:, None]
+                throughput = torch.where(alive[:, None], throughput * step_throughput,
+                                         throughput)
+                ray_pdf = torch.where(alive, ray_pdf * pdf, ray_pdf)
+
+                if bounce >= cfg.min_bounce_count:
+                    threshold = torch.clamp_min(
+                        1.0 - math3d.max_component(throughput), cfg.rr_min_threshold
+                    )
+                    rr, s0, s1 = rng.next_float(s0, s1)
+                    alive &= ~(rr < threshold)
+                    throughput = torch.where(
+                        alive[:, None], throughput / (1.0 - threshold)[:, None], throughput
+                    )
+
+                o = p
+                d = math3d.tangent_to_world(wi, tbn)
+                t_min = full(RAY_MIN_T)
+                # dead rays get a zero-length window so traversal exits at once
+                t_max = torch.where(alive, RAY_MAX_T, 0.0)
+
+            @span("vrt.trace.any")
+            def nee_trace(flip_pl: bool) -> tuple[Tensor, Tensor]:
+                """Trace the visibility rays of the current state (gated by the
+                pre-roulette aliveness); returns the irradiance with the
+                unshadowed contributions they pass added, and the ray count."""
+                nee_alive = sh_tmax_sun > 0.0
+                if scene.has_point_lights:
+                    if flip_pl:
+                        pl_o = shadow_origin + ldir * sh_tmax_pl[:, None]
+                        pl_d = -ldir
+                        pl_tmax = torch.where(
+                            sh_tmax_pl > 0.0,
+                            torch.clamp_min(sh_tmax_pl - RAY_MIN_T, 0.0),
+                            -1.0,
+                        )
+                        pl_tmin = full(0.0)
+                    else:
+                        pl_o, pl_d, pl_tmax = shadow_origin, ldir, sh_tmax_pl
+                        pl_tmin = full(RAY_MIN_T)
+                    occ = trace.trace_any(
+                        scene, cfg,
+                        torch.cat([pl_o, shadow_origin]),
+                        torch.cat([pl_d, sun_d]),
+                        torch.cat([pl_tmin, full(RAY_MIN_T)]),
+                        torch.cat([pl_tmax, sh_tmax_sun]),
+                    )
+                    occluded, sun_occluded = occ[:r], occ[r:]
+                    lit = irradiance + torch.where(occluded[:, None], 0.0, pl_contrib)
+                    cast = rays_cast + 2 * nee_alive.sum()
                 else:
-                    shadow_origin, sh_tmax_sun, sun_contrib = out[12:]
+                    sun_occluded = trace.trace_any(
+                        scene, cfg, shadow_origin, sun_d, full(RAY_MIN_T), sh_tmax_sun
+                    )
+                    lit, cast = irradiance, rays_cast + nee_alive.sum()
+                return lit + torch.where(sun_occluded[:, None], 0.0, sun_contrib), cast
 
-        if bounce > 0:
-            irradiance, rays_cast = nee_trace(flip_pl=True)
+            if bounce == 0:
+                irradiance, rays_cast = nee_trace(flip_pl=False)
 
-        if bounce + 1 < cfg.max_bounce_count:
-            hit = trace.trace_closest(scene, cfg, o, d, t_min, t_max,
-                                      cull_backface=True)
-            rays_cast += alive.sum()
+            if do_sort:
+                lo, hi = trace.root_bounds(scene.bvh)
+                core = (o, d, t_min, t_max, irradiance, throughput, ray_pdf,
+                        s0, s1, alive, valid, ray_slot)
+                if bounce == 0:
+                    shadow_cols = ()
+                elif scene.has_point_lights:
+                    shadow_cols = (shadow_origin, sh_tmax_sun, sun_contrib,
+                                   ldir, sh_tmax_pl, pl_contrib)
+                else:
+                    shadow_cols = (shadow_origin, sh_tmax_sun, sun_contrib)
+                out = reorder.sort_wavefront(o, d, t_min, t_max, lo, hi,
+                                             (*core, *shadow_cols))
+                (o, d, t_min, t_max, irradiance, throughput, ray_pdf,
+                 s0, s1, alive, valid, ray_slot) = out[:12]
+                if bounce > 0:
+                    if scene.has_point_lights:
+                        (shadow_origin, sh_tmax_sun, sun_contrib,
+                         ldir, sh_tmax_pl, pl_contrib) = out[12:]
+                    else:
+                        shadow_origin, sh_tmax_sun, sun_contrib = out[12:]
+
+            if bounce > 0:
+                irradiance, rays_cast = nee_trace(flip_pl=True)
+
+            if bounce + 1 < cfg.max_bounce_count:
+                hit = trace.trace_closest(scene, cfg, o, d, t_min, t_max,
+                                          cull_backface=True)
+                rays_cast += alive.sum()
 
     if cfg.tone_map_before_accumulation:
         color = math3d.tone_mapping(irradiance)

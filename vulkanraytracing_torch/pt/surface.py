@@ -21,6 +21,7 @@ from vulkanraytracing_torch.ops.intersect import SurfaceAttributes
 from vulkanraytracing_torch.ops.texture import sample_pool
 from vulkanraytracing_torch.pt import bsdf as bsdf_mod
 from vulkanraytracing_torch.scene.types import Materials, Scene
+from vulkanraytracing_torch.utils.profiling import host_sync
 
 # the texture slots of a material, in the order of ``texture_slots_used``
 SLOTS = ("base_color_texture", "roughness_metallic_texture", "emission_texture",
@@ -38,7 +39,9 @@ def texture_slots_used(materials: Materials) -> dict[str, bool]:
     A slot no material uses samples nothing that survives its mask, so
     ``unpack_material`` may skip it: the result is the same."""
     ids = torch.stack([getattr(materials, name) for name in SLOTS])
-    return dict(zip(SLOTS, (ids >= 0).any(dim=1).tolist()))
+    with host_sync("texture_slots"):
+        used = (ids >= 0).any(dim=1).tolist()
+    return dict(zip(SLOTS, used))
 
 
 def unpack_material(scene: Scene, attrs: SurfaceAttributes, with_occlusion: bool = False,

@@ -43,6 +43,7 @@ from vulkanraytracing_torch.scene.types import (
     make_trace_geometry,
     no_direct_light,
 )
+from vulkanraytracing_torch.utils.profiling import span
 
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16,
@@ -302,6 +303,7 @@ def calculate_tangents(
 # scene assembly
 
 
+@span("vrt.setup.load_scene")
 def load_scene(
     path: str | Path,
     texture_size: int = 2048,
