@@ -154,7 +154,15 @@ Run from the repository root.  Phases, each printing its result:
    apart: the plane test rounds t, u and v otherwise, which may move a
    hit at an edge or a cutout's texel), each MT frame bit-equal to it, the
    launches counted from 0 (woop frames launch only the woop
-   specializations).
+   specializations);
+15. the point-light pick kernel (``ops.nee_select``): one v1 1080p frame's
+   4 picks recorded, each replayed through the kernel (twice) against the
+   plain body on the CPU, bit for bit, and against the plain body on the
+   card (the state equal; lanes picking another light and the pdf's ulps
+   reported: the card's own rsqrt and cumsum round otherwise), each timed
+   on the device with the plain body's time beside it, and one frame
+   profiled, whose ``vrt.nee`` spans must hold exactly its 4 kernels'
+   device time (the kernel's op range encloses each launch).
 
 Each kernel's ``bound_ms`` is the larger of two times at the frame's
 shapes: its bytes (each ray's 32 input bytes once, the table once, the
@@ -183,7 +191,11 @@ from phase 10, ``big_launches``, ``big_frame_ms`` and
 over its woop frames, ``frame_*`` from its replay, and the A/B against
 Moller-Trumbore: ``mt_ms`` and ``ms_turns`` (the MT and woop kernels in
 turns at bounce 0), ``mt_frame_ms`` (the MT kernel over the same replayed
-frame) and ``frames_ms`` (whole frames, v1 and real, MT and woop).
+frame) and ``frames_ms`` (whole frames, v1 and real, MT and woop).  The
+point-light pick's entry (``nee_select``, phase 15) carries ``ms`` and
+``plain_ms`` at bounce 0, ``bound_ms`` (its bytes), ``frame_ms`` over the
+frame's 4 launches, and ``card_plain_idx_diff`` / ``card_plain_pdf_max_ulp``
+against the plain body on the card.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 1
 before printing any result.  The second-to-last line is a JSON object
@@ -287,6 +299,14 @@ TOOL_RUNS = {
 ANISO_REPORT = ROOT / "artifacts" / "aniso" / "report.json"
 ANISO_REL_TOL = 0.02
 ANISO_KEYS = ("rmse_trilinear_vs_aniso16", "rmse_aniso4_vs_aniso16", "rmse_trilinear_vs_aniso4")
+
+
+# the point-light pick (phase 15): runs timed a call, the cycles the stream
+# is held back before them, and the bytes a lane reads (normal 12, point
+# 12, state 16) and writes (index 8, pdf 4, state 16), over PEAK_BYTES
+NEE_REPS = 20
+NEE_HOLD_CYCLES = 200_000_000
+NEE_BYTES_PER_LANE = 68
 
 
 def check(ok: bool, what: str) -> None:
@@ -687,6 +707,132 @@ def replay(modules, counter, get_table, table_tensors, calls, label, check_plain
     print(f"{label} frame: replayed in {time.perf_counter() - t0:.1f} s", flush=True)
     return {name: {kind: tuple(v) for kind, v in per_kind.items()}
             for name, per_kind in totals.items()}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` runs: the stream is
+    held back first (``torch.cuda._sleep``), so every run is queued before
+    the first starts and the events time the device alone, not the host's
+    launches."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(NEE_HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ulps(a, b):
+    """Distance in units in the last place between float32 tensors of one
+    sign (0 where equal, NaN equal to NaN)."""
+    same = (a == b) | (a.isnan() & b.isnan())
+    d = (a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64)).abs()
+    return torch.where(same, 0, d)
+
+
+def nee_phase(render, lights, device) -> dict:
+    """Phase 15: the point-light pick kernel (``ops.nee_select``) on one
+    1080p frame's own picks.  Records the arguments of every
+    ``sample_point_light`` call of one frame (``render()``), the normal
+    rebuilt as a strided column of (R, 3, 3) frames as the integrator
+    passes it; for each call: kernel = the plain body on the CPU in every
+    output, bit for bit; kernel against the plain body on the card (the
+    state equal; the lanes whose light differs, and the pdf's largest
+    distance in ulps where it does not); each call's kernel ms and the
+    plain body's ms on the card; then one frame profiled, whose ``vrt.nee``
+    spans and ``vrt::nee_select`` ops must hold exactly its 4 kernels'
+    device time.
+    Returns the kernels line's entry."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vulkanraytracing_torch.ops import nee_select
+    from vulkanraytracing_torch.pt import integrator
+
+    calls = []
+    pick = integrator.sample_point_light
+
+    def record(lights_, n, p, s0, s1):
+        calls.append(tuple(x.clone() for x in (n, p, s0, s1)))
+        return pick(lights_, n, p, s0, s1)
+
+    integrator.sample_point_light = record
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        integrator.sample_point_light = pick
+    check(len(calls) == 4, f"a v1 frame picks {len(calls)} times, not once a bounce")
+    cpu_lights = lights.to("cpu")
+    frame_ms, plain_frame_ms, idx_diff, pdf_ulps = [], [], 0, 0
+    for bounce, (n, p, s0, s1) in enumerate(calls):
+        frames = torch.zeros((n.shape[0], 3, 3), device=device)
+        frames[..., 2] = n
+        n = frames[..., 2]
+        args = (lights, n, p, s0, s1)
+        kernel = nee_select.select_cuda(*args)
+        again = nee_select.select_cuda(*args)
+        on_cpu = integrator.sample_point_light_plain(
+            cpu_lights, *(x.cpu() for x in (n, p, s0, s1)))
+        on_card = integrator.sample_point_light_plain(*args)
+        torch.cuda.synchronize()
+        for field, a, b, c in zip(("idx", "pdf", "s0", "s1"), kernel, again, on_cpu):
+            bits = (lambda x: x.view(torch.int32)) if a.dtype == torch.float32 else (lambda x: x)
+            check(torch.equal(bits(a), bits(b)), f"nee bounce {bounce}: {field} differs twice")
+            check(torch.equal(bits(a.cpu()), bits(c)),
+                  f"nee bounce {bounce}: {field} differs from the plain body on the CPU")
+        check(torch.equal(kernel[2], on_card[2]) and torch.equal(kernel[3], on_card[3]),
+              f"nee bounce {bounce}: state differs from the plain body on the card")
+        same = kernel[0] == on_card[0]
+        idx_diff += int((~same).sum())
+        pdf_ulps = max(pdf_ulps, int(ulps(kernel[1][same], on_card[1][same]).max()))
+        frame_ms.append(device_ms(lambda: nee_select.select_cuda(*args), NEE_REPS))
+        plain_frame_ms.append(device_ms(lambda: integrator.sample_point_light_plain(*args), 3))
+        print(f"[15 nee] bounce {bounce}: {n.shape[0]} lanes, kernel {frame_ms[-1]:.4f} ms, "
+              f"plain body {plain_frame_ms[-1]:.3f} ms; kernel = plain body on the CPU bit "
+              f"for bit; against the plain body on the card: {int((~same).sum())} lanes "
+              f"pick another light, pdf within "
+              f"{int(ulps(kernel[1][same], on_card[1][same]).max())} ulp elsewhere",
+              flush=True)
+    lanes = calls[0][0].shape[0]
+    bound_ms = lanes * NEE_BYTES_PER_LANE / PEAK_BYTES * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a whole frame, the device held back on both sides of it: the
+        # session's first launch is booked twice (again under the profiler's
+        # activity buffer request), and late in a long process a device
+        # event near the session's edges can fall outside its window
+        torch.cuda._sleep(NEE_HOLD_CYCLES // 10)
+        render()
+        torch.cuda._sleep(NEE_HOLD_CYCLES // 10)
+        torch.cuda.synchronize()
+    events = prof.events()
+    ours = [e for e in events if e.device_type == DeviceType.CUDA
+            and "nee_select_kernel" in e.name]
+    ranges = {name: [e for e in events if e.device_type == DeviceType.CPU and e.name == name]
+              for name in ("vrt.nee", "vrt::nee_select")}
+    kernel_us = sum(e.time_range.elapsed_us() for e in ours)
+    covered = {name: sum(e.device_time_total for e in rows) for name, rows in ranges.items()}
+    check(len(ours) == 4 and all(len(rows) == 4 for rows in ranges.values()),
+          f"a profiled frame: {len(ours)} nee_select kernels, ranges "
+          f"{ {k: len(v) for k, v in ranges.items()} }")
+    check(kernel_us > 0 and all(abs(us - kernel_us) <= 1e-3 * kernel_us
+                                for us in covered.values()),
+          f"profiled frame: kernels {kernel_us} us, ranges' device time {covered}")
+    print(f"[15 nee] {lanes} lanes: kernel {frame_ms[0]:.4f} ms (mean of {NEE_REPS}), "
+          f"bound {bound_ms:.4f} ms ({NEE_BYTES_PER_LANE} B a lane over 3.35 TB/s), plain "
+          f"body {plain_frame_ms[0]:.3f} ms; a frame: 4 launches, {sum(frame_ms):.4f} ms "
+          f"against the plain body's {sum(plain_frame_ms):.3f} ms; a profiled frame: "
+          f"kernels {kernel_us:.1f} us, device time of their ranges " + ", ".join(
+              f"{k} {v:.1f} us" for k, v in covered.items()), flush=True)
+    return {"name": "nee_select", "route": "cuda",
+            "source": "vulkanraytracing_torch/csrc/nee_select.cu", "replaces": None,
+            "launches": len(calls), "ms": frame_ms[0], "plain_ms": plain_frame_ms[0],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "frame_ms": sum(frame_ms), "frame_launches": len(calls),
+            "card_plain_idx_diff": idx_diff, "card_plain_pdf_max_ulp": pdf_ulps}
 
 
 def lap(phase: str, since: float) -> float:
@@ -2142,6 +2288,12 @@ def main() -> int:
     launches.update({f"bvh8woop_{kind}": woop_launches[f"woop_{kind}"]
                      for kind in ("closest", "any")})
     phase_start = lap("14 woop", phase_start)
+
+    # -- 15. the point-light pick ------------------------------------------
+    nee_line = nee_phase(lambda: render_frame(v1, main_cfg, main_camera,
+                                              create_render_state(main_cfg, device)),
+                         v1.point_lights, device)
+    phase_start = lap("15 nee", phase_start)
     print(f"[time] chip_smoke: {time.perf_counter() - script_start:.1f} s in all", flush=True)
 
     lines = []
@@ -2199,6 +2351,7 @@ def main() -> int:
         print(f"[kernels] {key}: kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.1f} ms, {launches[key]} launches "
               f"in the frames of its path{in_frame_txt}", flush=True)
+    lines.append(nee_line)
     print(smi)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -423,3 +423,116 @@ def test_cli_renders_on_the_card_by_default(cuda, tmp_path):
     assert cli.main(["render", "--scene", "cornell", "--mode", "hybrid", "--width", "32",
                      "--height", "32", "--out", str(out)]) == 0
     assert tw.LAUNCHES["closest"] > before and read_png(out).shape == (32, 32, 3)
+
+
+# --- the point-light pick kernel (ops.nee_select) ---------------------------
+
+NEE_LANES = 2_088_960  # a 1080p frame's wavefront (the tiled pixel grid)
+
+
+def _nee_picks(device):
+    """A 1080p wavefront's picks: unit normals as the integrator passes them
+    (a strided column of (R, 3, 3) frames), points and 4 lights in the
+    hall's box, the integrator's int64 state."""
+    from vulkanraytracing_torch.scene.types import PointLights
+
+    gen = np.random.default_rng(5)
+    lo, hi = (-19.0, 0.5, -9.0), (19.0, 7.5, 9.0)
+    pos = np.concatenate([gen.uniform(lo, hi, (4, 3)), np.ones((4, 1))], 1)
+    col = np.concatenate([gen.uniform(5.0, 50.0, (4, 3)), np.ones((4, 1))], 1)
+    n = gen.normal(0.0, 1.0, (NEE_LANES, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    frames = torch.zeros((NEE_LANES, 3, 3), device=device)
+    frames[..., 2] = torch.from_numpy(n.astype(np.float32)).to(device)
+    p = gen.uniform(lo, hi, (NEE_LANES, 3)).astype(np.float32)
+    s0, s1 = gen.integers(0, 2**32, (2, NEE_LANES), dtype=np.int64)
+    lights = PointLights(*(torch.from_numpy(x.astype(np.float32)).to(device) for x in (pos, col)))
+    return (lights, frames[..., 2],
+            *(torch.from_numpy(x).to(device) for x in (p, s0, s1)))
+
+
+def test_nee_kernel_matches_the_plain_body(cuda):
+    """The kernel rounds as the plain body does on the CPU: bit-equal to it
+    in every output.  The plain body on the card takes the card's rsqrt
+    (not correctly rounded) and a scan in another order, so against it the
+    state is equal and idx and pdf may differ where a draw lies within
+    rounding of a CDF boundary."""
+    from vulkanraytracing_torch.ops import nee_select
+    from vulkanraytracing_torch.pt import integrator
+
+    lights, n, p, s0, s1 = _nee_picks(cuda)
+    assert n.stride() == (9, 3)
+    kernel = nee_select.select_cuda(lights, n, p, s0, s1)
+    on_cpu = integrator.sample_point_light_plain(lights.to("cpu"),
+                                                 *(x.cpu() for x in (n, p, s0, s1)))
+    for field, a, b in zip(("idx", "pdf", "s0", "s1"), kernel, on_cpu):
+        a = a.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), field
+    on_card = integrator.sample_point_light_plain(lights, n, p, s0, s1)
+    assert torch.equal(kernel[2], on_card[2]) and torch.equal(kernel[3], on_card[3])
+    same = kernel[0] == on_card[0]
+    # a draw within rounding of a boundary may pick the neighbour (none did
+    # on an H100); the card's rsqrt, up to 2 ulp off, moves NoL most where
+    # n.l cancels, and the pdf with it (up to 1.7e-4 of it on an H100)
+    assert int((~same).sum()) <= NEE_LANES // 100_000
+    torch.testing.assert_close(kernel[1][same], on_card[1][same], rtol=1e-3, atol=0.0)
+    assert len(torch.unique(kernel[0])) == 4
+
+
+def test_nee_kernel_time_lies_inside_its_ranges(cuda):
+    """One pick profiled inside a ``record_function`` range: the kernel is
+    launched under its op (``vrt::nee_select``), so the range, the op and
+    the ``vrt.nee`` span all hold its device time, as the benchmark's NEE
+    readers need."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vulkanraytracing_torch.pt import integrator
+
+    args = _nee_picks(cuda)
+    integrator.sample_point_light(*args)  # builds the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the session's first launch: the profiler books its kernel twice
+        # (again under its activity buffer request, a child of the same op);
+        # the device is held back on both sides of the pick, so no event of
+        # it lies near the session's edges
+        torch.ones(1, device=cuda).add_(1)
+        torch.cuda._sleep(20_000_000)
+        with record_function("nee_probe"):
+            integrator.sample_point_light(*args)
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and "nee_select_kernel" in e.name]
+    assert len(kernels) == 1
+    kernel_us = kernels[0].time_range.elapsed_us()
+    assert kernel_us > 0
+    for name in ("nee_probe", "vrt.nee", "vrt::nee_select"):
+        rows = [e for e in events if e.device_type == DeviceType.CPU and e.name == name]
+        assert len(rows) == 1, name
+        assert rows[0].device_time_total == pytest.approx(kernel_us, rel=1e-3), name
+
+
+def test_card_frame_picks_through_the_kernel(cuda):
+    """A small v1 frame on the card: one kernel pick a bounce over the
+    whole wavefront, none through the plain body."""
+    from vulkanraytracing_torch.app.engine import Engine
+    from vulkanraytracing_torch.pt.render import tile_pixel_coords
+    from vulkanraytracing_torch.scene.procedural import sponza_like_scene
+    from vulkanraytracing_torch.utils import profiling
+
+    scene = build_scene_bvh(sponza_like_scene(2000, workload="v1", device=cuda), builder="sah")
+    cfg = Config(width=32, height=32, camera=CameraConfig(
+        position=(-16.0, 3.0, 0.0), target=(0.0, 3.0, 0.0), aspect_ratio=1.0))
+    engine = Engine(cfg, scene, device=cuda)
+    engine.draw()
+    counts = profiling.frame_counts()
+    r = tile_pixel_coords(32, 32, device=cuda)[0].shape[0]
+    bounces = cfg.max_bounce_count
+    assert (counts["nee_calls.kernel"], counts["nee_lanes.kernel"]) == (bounces, bounces * r)
+    assert "nee_calls.plain" not in counts

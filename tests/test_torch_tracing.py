@@ -5,10 +5,11 @@ Two tiny scenes: the textured hall with alpha-tested foliage (its cutout
 subset attached) and the factor-only hall.  Under a CPU ``torch.profiler``
 session a frame emits every span that a reader in ``rtbench/metrics/``
 reads, nested as documented; with no session open no span opens a
-profiler range.  ``frame_counts`` gives the frame's host
-waits and traversal lanes as counted by hand from ``pt/integrator.py``
-and ``ops/trace.py``: with R lanes a wavefront, 4 closest calls of R
-lanes and 4 any-hit calls of 2R a factor-only frame (12R), and 24
+profiler range.  ``frame_counts`` gives the frame's host waits,
+traversal lanes and point-light picks as counted by hand from
+``pt/integrator.py`` and ``ops/trace.py``: with R lanes a wavefront, one
+pick of R lanes a bounce, 4 closest calls of R lanes and 4 any-hit
+calls of 2R a factor-only frame (12R), and 24
 closest calls of R plus 24 of 2R a frame with cutouts (each trace an
 opaque pass and a subset pass of 1 + ``MAX_ALPHA_ITERS`` rounds: 72R,
 60R of them the subset's).  ``tools.idle_by_span`` puts a trace's idle
@@ -154,6 +155,16 @@ def test_frame_counts_match_the_hand_count(traced):
         assert counts["syncs"] == 3
         assert counts["syncs.texture_slots"] == 1
     assert not any(k.startswith("syncs.table") for k in counts)  # tables are built
+
+
+def test_nee_counts_match_the_hand_count(traced):
+    """One point-light pick a bounce over the whole wavefront, on the plain
+    body for CPU tensors and never on the kernel."""
+    _, engine, _, counts = traced
+    r = tile_pixel_coords(W, H, device="cpu")[0].shape[0]
+    bounces = engine.cfg.max_bounce_count
+    assert (counts["nee_calls.plain"], counts["nee_lanes.plain"]) == (bounces, bounces * r)
+    assert "nee_calls.kernel" not in counts and "nee_lanes.kernel" not in counts
 
 
 def test_frame_counts_are_the_last_finished_frame(traced):

@@ -7,6 +7,11 @@ masks, with the same estimator and the same random stream per pixel
 Russian roulette from bounce ``min_bounce_count``, back-face culling on
 material rays only, the primary point-light sphere short-circuit).
 
+The point-light pick (``sample_point_light``) is one launch of a
+hand-written CUDA kernel (``ops.nee_select``) for CUDA tensors and the
+plain body for CPU tensors; the kernel rounds as the plain body does on
+the CPU, bit for bit.
+
 From bounce 1 on, point-light shadow rays are traced from the light
 toward the surface, as the JAX package does: the same segment, with the
 window [0, dist - RAY_MIN_T]; dead lanes get the inverted window
@@ -34,13 +39,13 @@ from vulkanraytracing_torch.config import Config, TraversalMode
 from vulkanraytracing_torch.core import math3d, rng
 from vulkanraytracing_torch.core.math3d import BIAS, EPSILON, RAY_MAX_T, RAY_MIN_T
 from vulkanraytracing_torch.env.panorama import sample_environment
-from vulkanraytracing_torch.ops import reorder, trace
+from vulkanraytracing_torch.ops import nee_select, reorder, trace
 from vulkanraytracing_torch.ops.intersect import fetch_surface_attributes
 from vulkanraytracing_torch.pt import bsdf as bsdf_mod
 from vulkanraytracing_torch.pt.surface import texture_slots_used, unpack_material
 from vulkanraytracing_torch.scene.camera import CameraPT
 from vulkanraytracing_torch.scene.types import PointLights, Scene
-from vulkanraytracing_torch.utils.profiling import host_sync, span, trace_scope
+from vulkanraytracing_torch.utils.profiling import count, host_sync, span, trace_scope
 
 BIG_T = 3.0e38
 
@@ -114,7 +119,22 @@ def _estimate_point_lights(lights: PointLights, n: Tensor, p: Tensor) -> Tensor:
 def sample_point_light(lights: PointLights, n: Tensor, p: Tensor, s0: Tensor,
                        s1: Tensor):
     """Irradiance-proportional CDF selection, one uniform draw per call.
-    Returns (light index, pdf, s0', s1')."""
+    Returns (light index, pdf, s0', s1').  CUDA tensors take one launch of
+    the kernel ``ops.nee_select``, CPU tensors the plain body; the frame
+    counts the calls and lanes of each (``nee_calls`` / ``nee_lanes``
+    under ``.kernel`` or ``.plain``)."""
+    path = "kernel" if n.is_cuda else "plain"
+    count("nee_calls." + path)
+    count("nee_lanes." + path, n.shape[0])
+    if n.is_cuda:
+        return nee_select.select_cuda(lights, n, p, s0, s1)
+    return sample_point_light_plain(lights, n, p, s0, s1)
+
+
+def sample_point_light_plain(lights: PointLights, n: Tensor, p: Tensor, s0: Tensor,
+                             s1: Tensor):
+    """``sample_point_light`` in plain PyTorch ops: run for CPU tensors, and
+    held against the kernel and its CPU twin in the tests."""
     est = _estimate_point_lights(lights, n, p)
     cdf = torch.cumsum(est, dim=1)
     total = cdf[:, -1:]
