@@ -21,20 +21,20 @@ import torch
 from rtbench import run
 
 
-def readings(cell: str, seed: int, frames: int, device) -> dict:
-    bench = json.loads((run.CHECKOUT / "BENCHMARK.json").read_text())
-    r = run.Run(*run.load_cell(bench, cell), seed)
+def readings(bench: dict, cell: str, seed: int, frames: int, device, frame: int = 0,
+             overrides: dict | None = None, cache=run.CACHE) -> dict:
+    r = run.Run(*run.load_cell(bench, cell, overrides=overrides), seed)
     r.device = device
-    r.files = run.scene_files(r)
+    r.files = run.scene_files(r, cache)
     px, py = run.sample_pixels(r, device)
     t0 = time.perf_counter()
-    ref = run.reference_pixels(r, px, py, frames, device, low=False)
+    ref = run.reference_pixels(r, px, py, frames, device, low=False, frame=frame)
     t1 = time.perf_counter()
-    low = run.reference_pixels(r, px, py, frames, device, low=True)
+    low = run.reference_pixels(r, px, py, frames, device, low=True, frame=frame)
     t2 = time.perf_counter()
     checks = run.compare(low, ref, r.workload["check"]["limits"])
     diff = (low - ref).abs().amax(dim=-1) * 255.0
-    return {"cell": cell, "seed": seed, "frames": frames,
+    return {"cell": cell, "seed": seed, "frames": frames, "frame": frame,
             "control": {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()},
             "max_levels": float(diff.max()),
             "reference_s": t1 - t0, "control_s": t2 - t1}
@@ -47,8 +47,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seeds", type=int, nargs="+", required=True)
     args = parser.parse_args(argv)
     device = torch.device("cuda", 0)
+    bench = json.loads((run.CHECKOUT / "BENCHMARK.json").read_text())
     for seed in args.seeds:
-        print(json.dumps(readings(args.workload, seed, args.frames, device)), flush=True)
+        print(json.dumps(readings(bench, args.workload, seed, args.frames, device)), flush=True)
     return 0
 
 

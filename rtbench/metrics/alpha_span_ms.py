@@ -3,7 +3,8 @@ subset's closest-passing-cutout phase and the whole-scene alpha re-trace
 of ``ops/trace.py``), outermost spans only, less the ``vrt.texture``
 spans inside them, which ``texture_span_ms`` counts.  The traversal
 kernels, launched through ctypes, are not under host spans and are not
-counted here."""
+counted here.  A moving configuration reads as a static one: its
+alpha re-trace over the whole scene runs under the same spans."""
 
 from rtbench.yardstick import outermost, range_device_ms
 

@@ -1,5 +1,6 @@
 """The device's idle share of the profiled frames' wall time: 100 x (1 -
-the union of its kernel and copy intervals / the frames' wall time)."""
+the union of its kernel and copy intervals / the frames' wall time).  A moving configuration reads as a static one:
+its profiled frames hold the refit."""
 
 from rtbench.yardstick import busy_union
 

@@ -1,4 +1,5 @@
-"""Device operations (kernels and copies) in the profiled frames, a frame."""
+"""Device operations (kernels and copies) in the profiled frames, a frame.  A
+moving configuration reads as a static one: the refit's operations count."""
 
 
 def read(run):

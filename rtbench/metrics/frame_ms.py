@@ -1,4 +1,5 @@
-"""Frame time: the window's wall time over the frames it completed."""
+"""Frame time: the window's wall time over the frames it completed; the
+same under motion."""
 
 
 def read(run):

@@ -1,4 +1,5 @@
-"""The 90th percentile of the window's frame times (every frame)."""
+"""The 90th percentile of the window's frame times (every frame); the
+same under motion."""
 
 from rtbench.yardstick import percentile
 

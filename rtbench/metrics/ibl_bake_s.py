@@ -1,5 +1,6 @@
 """Seconds of the set-up stage ``ibl_bake`` on the host clock, the card
-synchronized before and after."""
+synchronized before and after; the same under motion (a moving
+configuration runs path tracing only)."""
 
 
 def read(run):

@@ -1,4 +1,5 @@
-"""Set-up: from the program's import to the first measured frame."""
+"""Set-up: from the program's import to the first measured frame; a
+moving configuration's includes the Engine's two-level build."""
 
 
 def read(run):

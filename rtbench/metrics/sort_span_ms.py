@@ -1,6 +1,6 @@
 """Device ms a frame under the program's ``vrt.sort`` spans (the body of
 ``ops/reorder.py::sort_wavefront``: keys, the stable sort and every
-column's gather), outermost spans only."""
+column's gather), outermost spans only.  A moving configuration reads as a static one."""
 
 from rtbench.yardstick import outermost, range_device_ms
 

@@ -3,7 +3,7 @@ frame drawn (the program's ``traversal_lanes`` count at
 ``ops/trace.py``'s ``traverse_closest`` and ``traverse_any``, through
 which every traversal of a tree goes, read through
 ``utils.profiling.frame_counts``).  A program without the count reads
-None."""
+None.  A moving configuration reads as a static one."""
 
 
 def read(run):

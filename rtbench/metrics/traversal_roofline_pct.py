@@ -9,7 +9,10 @@ rays are replayed through the benchmark's own per-ray traversal over its
 own trees (the cutout subset's calls over the cutouts' tree, the others
 over the opaque triangles' tree) to count the box and triangle tests they
 need, so that the count does not move with the program's kernel, leaf
-test or table layout."""
+test or table layout.
+
+A moving configuration reads None: the replay holds one static tree,
+and its frames run the BVH2 kernel over a refitted tree."""
 
 from rtbench.reference import bvh
 from rtbench.yardstick import traversal_bound_ms
@@ -21,6 +24,8 @@ CHUNK = 1 << 21
 
 
 def read(run):
+    if run.moving:
+        return None
     rec = run.records
     kernel_ms = sum(e - s for name, s, e in rec["device"] if PATTERN in name) * 1e-3
     if kernel_ms <= 0.0 or not rec["calls"]:

@@ -1,20 +1,22 @@
-"""What a traced run reads from the program, set from outside.
-
-Every probe wraps a function of the program where it is bound: the module
-that defines it and every module that imports it by name, so that a call
-through any of them is seen.  The wrappers are put in for one pass of
-frames and taken out after it.  Four passes:
+"""What a traced run reads from the program.  Three passes of frames:
 
 - ``profile_device``: ``torch.profiler`` with device activity only, a first
   frame thrown away, then ``frames`` frames: each kernel and copy with its
   name and its start and end (us), and the frames' wall seconds;
-- ``profile_ranges``: host and device activity, each named function in a
-  ``record_function`` range: every range with its ancestors' names and
-  the device time of the kernels launched inside it, and the device
-  intervals with the host operation open at each idle gap;
-- ``time_calls``: CUDA events around each call of the named functions;
+- ``profile_ranges``: host and device activity over one frame, a first
+  thrown away: every host range (the program's ``vrt.*`` spans among them)
+  with its ancestors' names and the device time of the kernels launched
+  inside it, and the device intervals;
 - ``record_calls``: each call's arguments, tensors cloned, in one frame
-  whose device activity is traced too.
+  whose device activity is traced too.  It wraps each named function of
+  the program where it is bound (the module that defines it and every
+  module that imports it by name, so that a call through any of them is
+  seen) for that frame only.
+
+The device events are the kernels, copies and sets.  The device-side
+copy of a host range that kineto adds (a ``gpu_user_annotation``, named as
+the range and spanning the kernels launched inside it) is left out: it is
+no work, and it would cover the idle gaps inside its range.
 """
 
 from __future__ import annotations
@@ -65,10 +67,14 @@ def wrapped(targets: dict, make):
 
 
 def _device_events(prof) -> list[tuple[str, float, float]]:
+    """(name, start us, end us) of each device event that does not carry
+    the name of a host event of the same profile."""
     from torch.autograd import DeviceType
 
-    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return [(e.name, e.time_range.start, e.time_range.end) for e in events
+            if e.device_type == DeviceType.CUDA and e.name not in host]
 
 
 def profile_device(draw, frames: int) -> dict:
@@ -84,23 +90,16 @@ def profile_device(draw, frames: int) -> dict:
     return {"events": _device_events(prof), "wall_s": wall, "frames": frames}
 
 
-def profile_ranges(draw, ranges: dict) -> dict:
+def profile_ranges(draw) -> dict:
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    def make(name, fn):
-        def inner(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return inner
-
-    with wrapped(ranges, make):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-            draw()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            draw()
-            wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        draw()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        draw()
+        wall = time.perf_counter() - t0
     host = []
     for e in prof.events():
         if e.device_type != DeviceType.CPU:
@@ -114,28 +113,7 @@ def profile_ranges(draw, ranges: dict) -> dict:
             device_us = e.cuda_time_total
         host.append({"name": e.name, "start": e.time_range.start, "end": e.time_range.end,
                      "ancestors": ancestors, "device_us": float(device_us)})
-    return {"host": host, "device": _device_events(prof), "wall_s": wall, "frames": 1,
-            "ranges": sorted(ranges)}
-
-
-def time_calls(draw, timers: dict) -> dict:
-    events = {name: [] for name in timers}
-
-    def make(name, fn):
-        def inner(*a, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **k)
-            end.record()
-            events[name].append((start, end))
-            return out
-        return inner
-
-    with wrapped(timers, make):
-        draw()
-    torch.cuda.synchronize()
-    return {name: [a.elapsed_time(b) for a, b in ev] for name, ev in events.items()}
+    return {"host": host, "device": _device_events(prof), "wall_s": wall, "frames": 1}
 
 
 def record_calls(draw, targets: dict) -> dict:

@@ -262,9 +262,9 @@ def build_pool(images: list[np.ndarray], device, max_size: int = 2048) -> Pool:
     return Pool(t(np.concatenate(flat)), t(offset), t(width), t(height))
 
 
-def load(glb: Path, hdr: Path, sun_dir, sun_color, device) -> RefScene:
-    """The scene as the reference sees it, on ``device``."""
-    doc, blob = _read_glb(glb)
+def _geometry(doc: dict, blob: bytes, device) -> Geometry:
+    """Every primitive of the file's first mesh, each triangle's corners
+    with their attributes and its material's flags."""
     parts = []
     for prim in doc["meshes"][0]["primitives"]:
         attrs = prim["attributes"]
@@ -278,7 +278,6 @@ def load(glb: Path, hdr: Path, sun_dir, sun_color, device) -> RefScene:
                           tan=_unit64(_tangents(pos, uvs, idx)).astype(np.float32),
                           uv=uvs, idx=idx, material=prim["material"],
                           double_sided=bool(mat.get("doubleSided", False)), cutout=cutout))
-    mats = doc["materials"]
     base = np.cumsum([0] + [p["pos"].shape[0] for p in parts[:-1]])
     cat = {k: np.concatenate([p[k] for p in parts]) for k in ("pos", "nrm", "tan", "uv")}
     idx = np.concatenate([p["idx"] + b for p, b in zip(parts, base)])
@@ -286,7 +285,7 @@ def load(glb: Path, hdr: Path, sun_dir, sun_color, device) -> RefScene:
                for k in ("material", "double_sided", "cutout")}
     p0, p1, p2 = (cat["pos"][idx[:, k]] for k in range(3))
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa
-    geometry = Geometry(
+    return Geometry(
         v0=f(p0), e1=f(p1 - p0), e2=f(p2 - p0),
         n=tuple(f(cat["nrm"][idx[:, k]]) for k in range(3)),
         t=tuple(f(cat["tan"][idx[:, k]]) for k in range(3)),
@@ -295,6 +294,66 @@ def load(glb: Path, hdr: Path, sun_dir, sun_color, device) -> RefScene:
         double_sided=torch.from_numpy(per_tri["double_sided"]).to(device),
         cutout=torch.from_numpy(per_tri["cutout"]).to(device),
     )
+
+
+def load_mesh(glb: Path, device) -> Geometry:
+    """A moving configuration's mesh in object space (its own material
+    ids, which ``place`` replaces)."""
+    return _geometry(*_read_glb(glb), device)
+
+
+def place(scene: RefScene, mesh: Geometry, transforms: np.ndarray,
+          materials: list[int]) -> RefScene:
+    """The scene of one frame: the hall under ``transforms[0]`` and instance
+    i under ``transforms[i]`` with material ``materials[i - 1]``.  Each
+    triangle's corners (v0, v0 + e1, v0 + e2) go to world space in float32,
+    the configuration's precision, each coordinate m[r, 0] x + m[r, 1] y +
+    m[r, 2] z + m[r, 3] from left to right; normals and tangents by the
+    upper 3x3 (as glTF nodes carry them), divided by their length; a
+    mirroring transform swaps corners 1 and 2."""
+    parts = [(scene.geometry, transforms[0], None)]
+    parts += [(mesh, m, k) for m, k in zip(transforms[1:], materials)]
+    out = [_transform(g, m, k) for g, m, k in parts]
+    cat = lambda field: torch.cat([getattr(g, field) for g in out])  # noqa: E731
+    corners = lambda field: tuple(torch.cat([getattr(g, field)[k] for g in out])  # noqa: E731
+                                  for k in range(3))
+    geometry = Geometry(v0=cat("v0"), e1=cat("e1"), e2=cat("e2"), n=corners("n"),
+                        t=corners("t"), uv=corners("uv"), material=cat("material"),
+                        double_sided=cat("double_sided"), cutout=cat("cutout"))
+    return scene._replace(geometry=geometry)
+
+
+def _transform(g: Geometry, m: np.ndarray, material: int | None) -> Geometry:
+    m32 = np.asarray(m, np.float32)
+    rows = [[float(x) for x in row] for row in m32]
+
+    def point(v):
+        return torch.stack([v[:, 0] * r[0] + v[:, 1] * r[1] + v[:, 2] * r[2] + r[3]
+                            for r in rows[:3]], dim=-1)
+
+    def direction(v):
+        w = torch.stack([v[:, 0] * r[0] + v[:, 1] * r[1] + v[:, 2] * r[2] for r in rows[:3]],
+                        dim=-1)
+        length = torch.sqrt(w[:, 0] * w[:, 0] + w[:, 1] * w[:, 1] + w[:, 2] * w[:, 2])
+        return w / torch.clamp_min(length, 1e-20)[:, None]
+
+    p0, p1, p2 = point(g.v0), point(g.v0 + g.e1), point(g.v0 + g.e2)
+    n, t, uv = [direction(x) for x in g.n], [direction(x) for x in g.t], list(g.uv)
+    if np.linalg.det(m32[:3, :3].astype(np.float64)) < 0.0:
+        p1, p2 = p2, p1
+        for corner in (n, t, uv):
+            corner[1], corner[2] = corner[2], corner[1]
+    mat = g.material if material is None else torch.full_like(g.material, material)
+    return Geometry(v0=p0, e1=p1 - p0, e2=p2 - p0, n=tuple(n), t=tuple(t), uv=tuple(uv),
+                    material=mat, double_sided=g.double_sided, cutout=g.cutout)
+
+
+def load(glb: Path, hdr: Path, sun_dir, sun_color, device) -> RefScene:
+    """The scene as the reference sees it, on ``device``."""
+    doc, blob = _read_glb(glb)
+    geometry = _geometry(doc, blob, device)
+    mats = doc["materials"]
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa
     pbr = [m.get("pbrMetallicRoughness", {}) for m in mats]
     materials = Materials(
         base_color=f([p.get("baseColorFactor", [1, 1, 1, 1]) for p in pbr]),

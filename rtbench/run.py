@@ -11,13 +11,18 @@ the warm-up), with the cell's output check in ``workloads/<cell>.json``
 1. writes the cell's scene for ``--seed`` with the frozen generator
    (``scenegen.py``) as a .glb and an .hdr under ``rtbench/.cache/`` (once
    per configuration and seed; not part of the timed set-up: it stands for
-   an asset already on disk);
+   an asset already on disk), and a moving configuration's mesh as a .glb
+   of its own;
 2. set-up, timed from here to the first measured frame (``setup_s``): the
-   program is imported, loads both files (``scene.gltf.load_scene``,
-   ``app.hdr.read_hdr``), builds its SAH tree and the BVH8 collapse, bakes
-   the IBL where the mode needs it, makes its ``Engine``, selects the mode
-   by the T key as a user does, draws the warm-up frames (the first builds
-   the kernel library) and resets the accumulation (the R key);
+   program is imported and loads the files (``scene.gltf.load_scene``,
+   ``app.hdr.read_hdr``).  A static scene: the program builds its SAH tree
+   and the BVH8 collapse.  A moving one (``scene.instances``, ``motion.py``):
+   ``accel.tlas.make_instances`` makes the hall instance 0 and the mesh
+   instances 1 to count, and ``Engine(..., instances=, animation=)`` builds
+   its two-level tree on the device (the stage ``tlas_build``).  Then the
+   IBL is baked where the mode needs it, the ``Engine`` made, the mode
+   selected by the T key as a user does, the warm-up frames drawn (the
+   first builds the kernel library) and the accumulation reset (the R key);
 3. the window: ``Engine.draw()`` and ``torch.cuda.synchronize()`` in a
    closed loop until ``--seconds`` have passed; the frame that ends past
    the deadline closes it;
@@ -25,10 +30,15 @@ the warm-up), with the cell's output check in ``workloads/<cell>.json``
    of the same Engine, for the per-layer metrics;
 5. the check: the program's image is copied to the host and the program
    freed, then the plain reference (``reference/``, which imports nothing
-   of the program) renders a sample of pixels drawn from the seed over the
-   same number of frames, from the same two files, with its own tree and
-   its own IBL; each compared number is held to its limit in the workload
-   file.
+   of the program) renders a sample of pixels drawn from the seed, from
+   the same files, with its own tree and its own IBL, over the frames the
+   program has accumulated since its last reset.  The harness counts every
+   ``draw`` it makes (warm-up, window, traced passes): the accumulation
+   restarts at the R key and at each frame whose transforms differ from
+   the frame before, and its frames take the sample indices 0, 1, ...; a
+   moving scene's triangles are those of the last frame drawn.  Each
+   compared number is held to its limit in the workload file (a moving
+   scene's: ``px_off`` alone, ``load_cell``).
 
 Each metric is a reader in ``metrics/<name>.py``, found by its name in
 ``BENCHMARK.json``: the end-to-end ones with ``--trace 0``, the per-layer
@@ -48,6 +58,10 @@ import os
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
+
+from rtbench import motion, scenegen
 
 ROOT = Path(__file__).resolve().parent
 CHECKOUT = ROOT.parent
@@ -71,24 +85,55 @@ class Run:
         self.setup_stages: dict[str, float] = {}
         self.device_profile = None    # probes.profile_device
         self.ranges = None            # probes.profile_ranges
-        self.timers = None            # probes.time_calls, over one frame
         self.records = None           # probes.record_calls, over one frame
         self.program_scene = None
         self.files = None             # (scene.glb, sky.hdr)
+        self.mesh_file = None         # a moving configuration's mesh.glb
+        self.instance_materials = None  # the hall's glTF material of instances 1 to count
         self.device = None
         self.setup_start = 0.0
-        self.frames_drawn = 0         # frames drawn since the accumulation's reset
-        self._reference = None
+        self.draws = 0                # every Engine.draw() the harness made
+        self.reset_at = 0             # draws made before the R key
+        self.instances = config["scene"].get("instances")
+        self.animation = None if self.instances is None else motion.animation(self.instances)
+        self._hall = None             # the reference's static parts
+        self._reference = None        # (animation index, scene, trees)
 
-    def reference(self):
-        """(reference scene, its trees), built once, on the run's device."""
-        if self._reference is None:
-            from rtbench.reference import assets, render
+    @property
+    def moving(self) -> bool:
+        return self.instances is not None
 
-            scene = assets.load(*self.files, self.config["sun"]["direction"],
-                                self.config["sun"]["color"][:3], self.device)
-            self._reference = (scene, render.build_trees(scene))
-        return self._reference
+    def accumulated(self) -> tuple[int, int]:
+        """(animation index of the last frame drawn, frames the program
+        has accumulated since its last reset), from the harness's own count
+        of draws: the R key restarts the accumulation, and so does each
+        frame whose transforms differ from the frame before."""
+        last, first = self.draws - 1, self.reset_at
+        if self.animation is not None:
+            for k in range(last, first, -1):
+                if not np.array_equal(self.animation(k), self.animation(k - 1)):
+                    first = k
+                    break
+        return last, self.draws - first
+
+    def reference(self, frame: int = 0):
+        """(reference scene, its trees) at animation index ``frame``, built
+        once a frame, on the run's device."""
+        from rtbench.reference import assets, render
+
+        if self._hall is None:
+            sun = self.config["sun"]
+            hall = assets.load(*self.files, sun["direction"], sun["color"][:3], self.device)
+            mesh = assets.load_mesh(self.mesh_file, self.device) if self.moving else None
+            self._hall = (hall, mesh)
+        frame = frame if self.moving else 0
+        if self._reference is None or self._reference[0] != frame:
+            scene, mesh = self._hall
+            if self.moving:
+                scene = assets.place(scene, mesh, self.animation(frame),
+                                     self.instance_materials)
+            self._reference = (frame, scene, render.build_trees(scene))
+        return self._reference[1:]
 
 
 def load_module(path: Path):
@@ -136,11 +181,19 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def draw(run: Run, engine, device) -> None:
+    """One frame, waited for, and counted."""
+    engine.draw()
+    sync(device)
+    run.draws += 1
+
+
 def set_up(run: Run, device) -> object:
     """Everything before the first measured frame; returns the Engine."""
     import torch
 
     from vulkanraytracing_torch.accel.lbvh import build_scene_bvh
+    from vulkanraytracing_torch.accel.tlas import make_instances
     from vulkanraytracing_torch.app.engine import Engine
     from vulkanraytracing_torch.app.events import Key
     from vulkanraytracing_torch.app.hdr import read_hdr
@@ -166,23 +219,35 @@ def set_up(run: Run, device) -> object:
         light = DirectLight(
             direction=torch.tensor([*sun["direction"], 0.0], dtype=torch.float32, device=device),
             color=torch.tensor(sun["color"], dtype=torch.float32, device=device))
-        return scene._replace(environment=make_environment(pano), direct_light=light)
+        scene = scene._replace(environment=make_environment(pano), direct_light=light)
+        mesh = load_scene(run.mesh_file, device=device)[0].geometry if run.moving else None
+        return scene, mesh
 
-    scene = stage("scene_load", load)
-    scene = stage("bvh_build", lambda: build_scene_bvh(scene, builder="sah"))
+    scene, mesh = stage("scene_load", load)
+    if not run.moving:
+        scene = stage("bvh_build", lambda: build_scene_bvh(scene, builder="sah"))
     if wl["mode"] == "hybrid":
         from vulkanraytracing_torch.env.ibl import bake_ibl
 
         scene = scene._replace(environment=stage("ibl_bake", lambda: bake_ibl(
             scene.environment, rcfg.irradiance_size, rcfg.reflection_size,
             rcfg.brdf_lut_size)))
-    engine = Engine(rcfg, scene, device=device)
+    if run.moving:
+        # the mesh file's one material is 0: each instance's offset is the
+        # hall material it takes
+        offsets = [0] + run.instance_materials
+        engine = stage("tlas_build", lambda: Engine(
+            rcfg, scene, instances=make_instances([scene.geometry, mesh],
+                                                  [0] + [1] * (len(offsets) - 1), offsets),
+            animation=run.animation, device=device))
+    else:
+        engine = Engine(rcfg, scene, device=device)
     if wl["mode"] == "hybrid":
         engine.inject_key(Key.T)
     for _ in range(wl["warmup_frames"]):
-        engine.draw()
-        sync(device)
+        draw(run, engine, device)
     engine.inject_key(Key.R)
+    run.reset_at = run.draws
     run.program_scene = engine.scene
     return engine
 
@@ -194,10 +259,8 @@ def measure(run: Run, engine, seconds: float, device) -> None:
     run.setup_s = t_win - run.setup_start
     while True:
         t0 = time.perf_counter()
-        engine.draw()
-        sync(device)
+        draw(run, engine, device)
         t1 = time.perf_counter()
-        run.frames_drawn += 1
         run.frame_s.append(t1 - t0)
         if t1 - t_win >= seconds:
             break
@@ -210,21 +273,16 @@ def traced_passes(run: Run, engine, metric_modules: dict, device) -> None:
     """The probes' passes that the cell's per-layer metrics ask for."""
     from rtbench import probes
 
-    def draw():
-        engine.draw()
-        sync(device)
-        run.frames_drawn += 1
+    def frame():
+        draw(run, engine, device)
 
-    needs = {"RANGES": {}, "TIMERS": {}, "RECORD": {}}
+    record = {}
     for module in metric_modules.values():
-        for key in needs:
-            needs[key].update(getattr(module, key, {}))
-    run.device_profile = probes.profile_device(draw, run.workload["trace"]["profiled_frames"])
-    run.ranges = probes.profile_ranges(draw, needs["RANGES"])
-    if needs["TIMERS"]:
-        run.timers = probes.time_calls(draw, needs["TIMERS"])
-    if needs["RECORD"]:
-        run.records = probes.record_calls(draw, needs["RECORD"])
+        record.update(getattr(module, "RECORD", {}))
+    run.device_profile = probes.profile_device(frame, run.workload["trace"]["profiled_frames"])
+    run.ranges = probes.profile_ranges(frame)
+    if record:
+        run.records = probes.record_calls(frame, record)
 
 
 def kernel_label(name: str) -> str:
@@ -252,9 +310,7 @@ def breakdown(run: Run) -> dict:
             open_ops = [h for h in host if h["start"] <= s < h["end"]]
             inner = min(open_ops, key=lambda h: h["end"] - h["start"])["name"] if open_ops \
                 else "host idle"
-            ranged = [h["name"] for h in open_ops if h["name"] in run.ranges["ranges"]]
-            label = inner if not ranged else f"{ranged[-1]}/{inner}"
-            gaps.append((label, (e - s) * 1e-6))
+            gaps.append((inner, (e - s) * 1e-6))
     gaps.sort(key=lambda g: -g[1])
     return {"device_ops": [[n, v] for n, v in ops], "idle_gaps": [[n, v] for n, v in gaps[:10]]}
 
@@ -263,25 +319,41 @@ def load_cell(bench: dict, name: str, root: Path = ROOT, overrides: dict | None 
     """(cell entry, workload, configuration) of cell ``name``: its traffic
     mix with its own file over it, and its configuration's file;
     ``overrides`` ({"workload": ..., "config": ...}) shrink them for the
-    CPU tests."""
+    CPU tests, or add a moving scene (``scene.instances``, ``motion.py``).
+    A moving scene is checked by ``px_off`` alone: at one sample a frame a
+    path that a rounding sends another way shows whole, and ``mean_off``
+    reads such paths about as high as it reads the control."""
     cell = next(c for c in bench["workloads"] if c["name"] == name)
     workload = json.loads((root / "traffic" / f"{cell['traffic']}.json").read_text())
     workload.update(json.loads((root / "workloads" / f"{name}.json").read_text()))
     config = json.loads((root / "configs" / f"{cell['config']}.json").read_text())
     for part, changes in (overrides or {}).items():
         _merge({"workload": workload, "config": config}[part], changes)
-    unread = (set(workload) - TRAFFIC_KEYS) | (set(workload["camera"]) - CAMERA_KEYS)
+    unread = sorted((set(workload) - TRAFFIC_KEYS) | (set(workload["camera"]) - CAMERA_KEYS))
+    instances = config["scene"].get("instances")
+    if instances is not None:
+        unread += [f"instances.{k}" for k in motion.unread_keys(instances)]
+        if workload["mode"] == "hybrid":
+            unread.append("instances under the hybrid mode")
+        if "mean_off" in workload["check"]["limits"]:
+            unread.append("mean_off under motion")
     if unread or workload["mode"] not in MODES:
         raise ValueError(f"cell {name}: the harness does not implement "
-                         f"{sorted(unread) or workload['mode']!r}")
+                         f"{unread or workload['mode']!r}")
     return cell, workload, config
 
 
 def scene_files(run: Run, cache: Path = CACHE):
-    from rtbench import scenegen
-
+    """The run's (scene.glb, sky.hdr); where the scene moves, also its
+    mesh.glb (``run.mesh_file``) and the hall's glTF material of each
+    instance (``run.instance_materials``), which both sides take as input."""
     sc = run.config["scene"]
-    return scenegen.scene_files(cache, sc["kind"], sc["triangles"], run.seed)
+    files = scenegen.scene_files(cache, sc["kind"], sc["triangles"], run.seed)
+    if run.moving:
+        run.mesh_file = scenegen.mesh_file(cache, run.instances["mesh"])
+        run.instance_materials = scenegen.material_indices(
+            files[0], motion.materials(run.instances))
+    return files
 
 
 def sample_pixels(run: Run, device):
@@ -296,20 +368,25 @@ def sample_pixels(run: Run, device):
     return flat % w, flat // w
 
 
-def check(run: Run, image, frames: int, device) -> dict:
-    """The reference at a sample of pixels against the program's image:
-    {name: (value, limit)}."""
+def check(run: Run, image, device) -> dict:
+    """The reference at a sample of pixels against the program's image,
+    over the frames accumulated since the last reset, at the last frame's
+    animation index: {name: (value, limit)}."""
     px, py = sample_pixels(run, device)
-    ref = reference_pixels(run, px, py, frames, device, low=False)
+    frame, frames = run.accumulated()
+    ref = reference_pixels(run, px, py, frames, device, low=False, frame=frame)
     return compare(image.to(device)[py, px], ref, run.workload["check"]["limits"])
 
 
-def reference_pixels(run: Run, px, py, frames: int, device, low: bool):
+def reference_pixels(run: Run, px, py, frames: int, device, low: bool, frame: int = 0):
+    """The reference's image at pixels (px, py) after ``frames`` frames
+    (sample indices 0 to frames - 1) of the scene at animation index
+    ``frame``."""
     from rtbench.reference import render
 
     wl, cfg = run.workload, run.config
     w, h = wl["resolution"]
-    scene, trees = run.reference()
+    scene, trees = run.reference(frame)
     cam = render.camera(wl["camera"]["position"], wl["camera"]["target"], w, h, device)
     r = cfg["render"]
     rcfg = {"max_bounces": r["max_bounces"], "min_bounces": r["min_bounces"],
@@ -339,8 +416,12 @@ def compare(got, ref, limits: dict) -> dict:
 
 
 def _merge(into: dict, changes: dict) -> None:
+    """``changes`` into ``into``, group by group; a value of None takes
+    the key out."""
     for key, value in changes.items():
-        if isinstance(value, dict) and isinstance(into.get(key), dict):
+        if value is None:
+            into.pop(key, None)
+        elif isinstance(value, dict) and isinstance(into.get(key), dict):
             _merge(into[key], value)
         else:
             into[key] = value
@@ -390,7 +471,6 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
     run.records = None
 
     image = engine.state.accumulation.detach().to("cpu")
-    frames = run.frames_drawn
     attempted = len(run.frame_s)
     run.program_scene = None
     del engine
@@ -398,8 +478,10 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    checks = check(run, image, frames, device)
-    log(f"reference over {frames} frames: {time.perf_counter() - t0:.2f} s")
+    checks = check(run, image, device)
+    frame, frames = run.accumulated()
+    log(f"reference over {frames} frame(s) at animation index {frame}: "
+        f"{time.perf_counter() - t0:.2f} s")
     device_info = {"platform": "gpu" if device.type == "cuda" else "cpu",
                    "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
                    "count": 1, "memory_peak_bytes": int(peak)}

@@ -16,6 +16,12 @@ material per (material, double-sided, cutout) group, each triangle's
 corners written out, the textures as embedded PNGs, the point lights as
 ``KHR_lights_punctual``) and ``sky.hdr`` (flat RGBE scanlines).  The sun
 is not part of glTF; the configuration file states it.
+
+A configuration whose scene moves (``motion.py``) also has its mesh written
+once per (radius, lat, lon) as ``mesh.glb``: the UV sphere in the same
+layout, with one plain single-sided opaque material and no lights.  Neither
+side shades with that material: an instance takes the hall's material that
+the configuration names (``material_indices``).
 """
 
 from __future__ import annotations
@@ -374,8 +380,9 @@ def encode_png(image: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
-def write_glb(scene: SceneData, path: Path) -> None:
-    """The scene as a .glb in the program's export layout."""
+def write_glb(scene: SceneData, path: Path, lights: bool = True) -> None:
+    """The scene as a .glb in the program's export layout, with the point
+    lights where ``lights``."""
     v0 = scene.v0
     p1 = v0 + scene.e1
     p2 = v0 + scene.e2
@@ -457,14 +464,16 @@ def write_glb(scene: SceneData, path: Path) -> None:
         doc["images"] = images_json
         doc["samplers"] = [{"magFilter": 9729, "minFilter": 9987,
                             "wrapS": 10497, "wrapT": 10497}]
-    lights = []
-    for i, (pos, col) in enumerate(zip(LIGHT_POSITIONS, LIGHT_COLORS)):
-        lights.append({"type": "point", "intensity": 1.0, "color": [float(c) for c in col[:3]]})
-        doc["nodes"].append({"name": f"light{i}", "translation": [float(x) for x in pos[:3]],
-                             "extensions": {"KHR_lights_punctual": {"light": i}}})
-        doc["scenes"][0]["nodes"].append(len(doc["nodes"]) - 1)
-    doc["extensions"] = {"KHR_lights_punctual": {"lights": lights}}
-    doc["extensionsUsed"] = ["KHR_lights_punctual"]
+    if lights:
+        points = []
+        for i, (pos, col) in enumerate(zip(LIGHT_POSITIONS, LIGHT_COLORS)):
+            points.append({"type": "point", "intensity": 1.0,
+                           "color": [float(c) for c in col[:3]]})
+            doc["nodes"].append({"name": f"light{i}", "translation": [float(x) for x in pos[:3]],
+                                 "extensions": {"KHR_lights_punctual": {"light": i}}})
+            doc["scenes"][0]["nodes"].append(len(doc["nodes"]) - 1)
+        doc["extensions"] = {"KHR_lights_punctual": {"lights": points}}
+        doc["extensionsUsed"] = ["KHR_lights_punctual"]
     doc["accessors"] = accessors
     doc["bufferViews"] = views
     doc["buffers"] = [{"byteLength": len(blob)}]
@@ -504,6 +513,12 @@ def write_hdr(path: Path, rgb: np.ndarray) -> None:
     Path(path).write_bytes(header + float_to_rgbe(rgb).tobytes())
 
 
+def _write_once(path: Path, write) -> None:
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    write(tmp)
+    os.replace(tmp, path)
+
+
 def scene_files(cache_dir: Path, kind: str, triangles: int, seed: int) -> tuple[Path, Path]:
     """(scene.glb, sky.hdr) of (kind, triangles, seed) in ``cache_dir``,
     written once: a later run with the same key finds them."""
@@ -513,9 +528,35 @@ def scene_files(cache_dir: Path, kind: str, triangles: int, seed: int) -> tuple[
         return glb, hdr
     d.mkdir(parents=True, exist_ok=True)
     scene = sponza(kind, triangles, seed)
-    for path, write in ((glb, lambda p: write_glb(scene, p)),
-                        (hdr, lambda p: write_hdr(p, scene.sky))):
-        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-        write(tmp)
-        os.replace(tmp, path)
+    _write_once(glb, lambda p: write_glb(scene, p))
+    _write_once(hdr, lambda p: write_hdr(p, scene.sky))
     return glb, hdr
+
+
+def mesh_file(cache_dir: Path, mesh: dict) -> Path:
+    """``mesh.glb`` of a moving configuration's UV sphere (its ``radius``,
+    ``lat`` and ``lon``) in ``cache_dir``, written once."""
+    radius, lat, lon = float(mesh["radius"]), int(mesh["lat"]), int(mesh["lon"])
+    path = Path(cache_dir) / f"sphere-{radius!r}-{lat}-{lon}" / "mesh.glb"
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    verts, idx = generate_sphere(radius, lat=lat, lon=lon)
+    plain = dict(base_color=[(1.0, 1.0, 1.0, 1.0)], roughness=[1.0], metallic=[0.0],
+                 cutoff=[0.5], base_color_texture=[-1])
+    scene = SceneData([Part(verts, idx)], plain, [], None)
+    _write_once(path, lambda p: write_glb(scene, p, lights=False))
+    return path
+
+
+def material_indices(glb: Path, materials: list[int]) -> list[int]:
+    """The glTF index, in the hall's ``glb``, of each configuration
+    material in ``materials``: its single-sided opaque group (``mat<k>``),
+    which ``write_glb`` names."""
+    with open(glb, "rb") as f:
+        length = struct.unpack("<I", f.read(20)[12:16])[0]
+        names = [m["name"] for m in json.loads(f.read(length))["materials"]]
+    missing = sorted({k for k in materials if f"mat{k}" not in names})
+    if missing:
+        raise ValueError(f"{glb}: no single-sided opaque material {missing}")
+    return [names.index(f"mat{k}") for k in materials]

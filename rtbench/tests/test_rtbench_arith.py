@@ -58,13 +58,6 @@ def test_ranges_count_outermost_calls_once():
     assert yardstick.range_device_ms(host, alpha) == pytest.approx(1.05)
     assert yardstick.range_device_ms(host, ["sample_pool"]) == pytest.approx(0.31)
     assert yardstick.range_device_ms(host, ["sample_pool"], inside=alpha) == pytest.approx(0.24)
-    mod = run.load_module(ROOT / "metrics" / "alpha_ms_per_frame.py")
-    r = types.SimpleNamespace(ranges={"host": host, "frames": 1})
-    assert mod.read(r) == pytest.approx(1.05 - 0.24)
-    tex = run.load_module(ROOT / "metrics" / "texture_ms_per_frame.py")
-    assert tex.read(r) == pytest.approx(0.31)
-    nee = run.load_module(ROOT / "metrics" / "nee_ms_per_frame.py")
-    assert nee.read(r) is None  # nothing to read: the metric is left out
 
 
 def test_readers_on_a_synthetic_run():
@@ -72,8 +65,7 @@ def test_readers_on_a_synthetic_run():
         frame_s=[0.1, 0.2, 0.3, 0.4], window_s=1.0, setup_s=12.5, window_rays=5e8,
         setup_stages={"scene_load": 1.5, "bvh_build": 2.0},
         device_profile={"events": [("k", 0.0, 100.0), ("k", 50.0, 150.0), ("c", 300.0, 400.0)],
-                        "wall_s": 500e-6, "frames": 2},
-        timers={"sort_wavefront": [1.0, 2.5]})
+                        "wall_s": 500e-6, "frames": 2})
 
     def read(name):
         return run.load_module(ROOT / "metrics" / f"{name}.py").read(r)
@@ -84,7 +76,6 @@ def test_readers_on_a_synthetic_run():
     assert read("mrays_per_s") == pytest.approx(500.0)
     assert read("device_idle_pct") == pytest.approx(100.0 * (1.0 - 250.0 / 500.0))
     assert read("device_ops_per_frame") == 1.5
-    assert read("sort_ms_per_frame") == 3.5
     assert read("scene_load_s") == 1.5
     assert read("ibl_bake_s") is None
 
@@ -104,3 +95,29 @@ def test_kernel_labels_keep_the_template():
     assert run.kernel_label("void vrt::traverse_kernel<vrt::Bvh8, true, false>(int*)") == \
         "void vrt::traverse_kernel<vrt::Bvh8, true, false>"
     assert len(run.kernel_label("k" * 500)) == 200
+
+
+def _event(name, device, start, end):
+    from torch.autograd import DeviceType
+
+    return types.SimpleNamespace(name=name, device_type=getattr(DeviceType, device),
+                                 time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def test_device_events_leave_out_the_annotations_of_host_ranges():
+    """kineto's device-side copy of a host range (named as the range) is no
+    work: with it, ``vrt.frame`` would cover every idle gap of the frame."""
+    from rtbench import probes
+
+    events = [_event("vrt.frame", "CPU", 0.0, 100.0), _event("vrt.sort", "CPU", 10.0, 40.0),
+              _event("cudaLaunchKernel", "CPU", 11.0, 12.0),
+              _event("vrt.frame", "CUDA", 15.0, 90.0), _event("vrt.sort", "CUDA", 15.0, 30.0),
+              _event("sort_kernel", "CUDA", 15.0, 20.0), _event("gather", "CUDA", 60.0, 90.0)]
+    prof = types.SimpleNamespace(events=lambda: events)
+    kept = probes._device_events(prof)
+    assert kept == [("sort_kernel", 15.0, 20.0), ("gather", 60.0, 90.0)]
+    assert yardstick.idle_gaps([(s, e) for _, s, e in kept], 0.0, 100.0) == \
+        [(0.0, 15.0), (20.0, 60.0), (90.0, 100.0)]
+    # a device-only profile has no host ranges: every device event stays
+    device_only = types.SimpleNamespace(events=lambda: events[3:])
+    assert len(probes._device_events(device_only)) == 4

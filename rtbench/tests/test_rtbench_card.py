@@ -1,5 +1,7 @@
 """One short run of each cell on the card, through the command the driver
-runs.  Marked ``gpu``: it skips where there is no CUDA device.
+runs, and one of the moving configuration that waits to become a cell
+(``sponza_v1`` with ``DYNAMIC``'s instances), in process through
+``run.run_cell``.  Marked ``gpu``: it skips where there is no CUDA device.
 
     python -m pytest rtbench/tests/test_rtbench_card.py -m gpu -q
 """
@@ -17,6 +19,15 @@ from rtbench import run
 pytestmark = pytest.mark.gpu
 ROOT = Path(run.__file__).resolve().parent
 BENCH = json.loads((ROOT.parent / "BENCHMARK.json").read_text())
+# the v1 hall as instance 0 and 64 spheres of 1,024 triangles on orbits of
+# radius 3 around the hall's centre, 96 frames a turn, 1/64 turn apart,
+# bobbing 0.4 about a height of 1.2, in materials 3 and 4 by turns; checked
+# by px_off at 262,144 pixels (one block of the reference's paths)
+DYNAMIC = {"config": {"scene": {"instances": {
+    "mesh": {"radius": 0.6, "lat": 16, "lon": 32}, "count": 64, "materials": [3, 4],
+    "orbit": {"radius": 3.0, "height": 1.2, "bob": 0.4, "period_frames": 96,
+              "phase_spacing_turns": 0.015625}}}},
+    "workload": {"check": {"pixels": 262144, "limits": {"mean_off": None}}}}
 
 
 @pytest.mark.parametrize("cell", [c["name"] for c in BENCH["workloads"]])
@@ -32,3 +43,12 @@ def test_a_short_run_on_the_card(cell):
     assert set(result["metrics"]) == {m["name"] for m in run.cell_metrics(BENCH, cell, False)}
     assert result["device"]["platform"] == "gpu" and result["device"]["count"] == 1
     assert list(result)[-1] == "checks"
+
+
+def test_the_moving_configuration_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the benchmark runs only on the card")
+    result = run.run_cell(BENCH, "v1-pt-1080p", 2147483661, 2.0, False,
+                          torch.device("cuda", 0), overrides=DYNAMIC)
+    assert result["correct"] is True, result["checks"]
+    assert result["attempted"] >= 1 and result["device"]["platform"] == "gpu"

@@ -1,6 +1,8 @@
 """The frozen scene generator against the program's, and the files it
 writes against the program's loader (CPU, a small triangle count)."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -72,3 +74,21 @@ def test_scene_files_are_written_once(tmp_path):
     assert scenegen.scene_files(tmp_path, "v1", 2000, 3) == (glb, hdr)
     assert glb.stat().st_mtime_ns == stamp
     assert not list(tmp_path.rglob("*.tmp"))
+
+
+# sha256 of (scene.glb, sky.hdr) at 4,000 triangles asked, seed 2147483659,
+# as the generator wrote them before moving scenes came in: a static
+# configuration's files stay byte for byte what they were.  The textured
+# scene's PNGs are zlib's level 6; another zlib may pack them otherwise.
+DIGESTS = {
+    "v1": ("7d4712ba0198c6da3341928054a90a887c4f8872a03457411355b77aea127e02",
+           "190882e6fb0236b78f924f43575c9619df7ce94e8eb492db68b05c6c915d60ae"),
+    "real": ("bb392935963ef36b4d020ecd189c61bfe03440799b53ef92de9fcbf7d5be6229",
+             "c0f73a12c28674fd12f7a8bbb84f1addc63c1b2889e8d80f55b241e75a5110fb"),
+}
+
+
+@pytest.mark.parametrize("kind", ["v1", "real"])
+def test_static_scene_files_are_unchanged(kind, tmp_path):
+    files = scenegen.scene_files(tmp_path, kind, TRIS, 2147483659)
+    assert tuple(hashlib.sha256(f.read_bytes()).hexdigest() for f in files) == DIGESTS[kind]
